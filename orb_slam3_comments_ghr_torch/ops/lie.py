@@ -1,0 +1,77 @@
+"""SO(3) / SE(3) operations on the per-frame path.
+
+Port of the SO(3)/SE(3) part of `orb_slam3_comments_ghr_tpu/ops/lie.py`.
+Rotations are (...,3,3) matrices, translations (...,3) vectors; every
+function broadcasts over leading batch dims. The se3 tangent is ordered
+[rho (translation), phi (rotation)], as g2o's SE3Quat.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def hat(v: torch.Tensor) -> torch.Tensor:
+    """so(3) hat operator: v (...,3) -> skew-symmetric (...,3,3)."""
+    x, y, z = v[..., 0], v[..., 1], v[..., 2]
+    zero = torch.zeros_like(x)
+    return torch.stack(
+        [
+            torch.stack([zero, -z, y], dim=-1),
+            torch.stack([z, zero, -x], dim=-1),
+            torch.stack([-y, x, zero], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
+def _sinc_coeffs_sq(t2: torch.Tensor):
+    """(A, B, C) = (sin t/t, (1-cos t)/t^2, (t - sin t)/t^3) from t2 = t^2,
+    with the Taylor branch below t2 = 1e-8 (the sqrt runs on a clamped
+    value so the branch not taken never produces NaN)."""
+    small = t2 < 1e-8
+    safe_t = torch.sqrt(torch.where(small, torch.ones_like(t2), t2))
+    A = torch.where(small, 1.0 - t2 / 6.0, torch.sin(safe_t) / safe_t)
+    B = torch.where(small, 0.5 - t2 / 24.0, (1.0 - torch.cos(safe_t)) / (safe_t * safe_t))
+    C = torch.where(small, 1.0 / 6.0 - t2 / 120.0, (safe_t - torch.sin(safe_t)) / safe_t**3)
+    return A, B, C
+
+
+def _eye_like(K: torch.Tensor) -> torch.Tensor:
+    return torch.eye(3, dtype=K.dtype, device=K.device).expand(K.shape)
+
+
+def so3_exp(phi: torch.Tensor) -> torch.Tensor:
+    """Rodrigues: (...,3) tangent -> (...,3,3) rotation."""
+    t2 = torch.sum(phi * phi, dim=-1)
+    A, B, _ = _sinc_coeffs_sq(t2)
+    K = hat(phi)
+    return _eye_like(K) + A[..., None, None] * K + B[..., None, None] * (K @ K)
+
+
+def so3_left_jacobian(phi: torch.Tensor) -> torch.Tensor:
+    """J_l(phi): (...,3) -> (...,3,3)."""
+    t2 = torch.sum(phi * phi, dim=-1)
+    _, B, C = _sinc_coeffs_sq(t2)
+    K = hat(phi)
+    return _eye_like(K) + B[..., None, None] * K + C[..., None, None] * (K @ K)
+
+
+def _matvec(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return (M @ v.unsqueeze(-1)).squeeze(-1)
+
+
+def se3_exp(xi: torch.Tensor):
+    """(...,6) tangent [rho, phi] -> (R, t)."""
+    rho, phi = xi[..., :3], xi[..., 3:]
+    return so3_exp(phi), _matvec(so3_left_jacobian(phi), rho)
+
+
+def se3_mul(Ra, ta, Rb, tb):
+    """(Ra,ta) * (Rb,tb)."""
+    return Ra @ Rb, _matvec(Ra, tb) + ta
+
+
+def se3_apply(R, t, p):
+    """Transform points p (...,3)."""
+    return _matvec(R, p) + t

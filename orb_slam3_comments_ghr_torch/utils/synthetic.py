@@ -1,0 +1,176 @@
+"""Synthetic two-plane scene, camera arc and local map (numpy only).
+
+Re-implements `make_textured_scene`, `render_image` and
+`circular_trajectory` of `orb_slam3_comments_ghr_tpu/utils/synthetic.py`
+(the same arithmetic, so the same images), the exact two-plane depth map,
+and a `LocalPoints` builder that back-projects keyframe features with that
+depth the way the map's point-geometry update sets normals and distance
+bands. Runs where JAX is absent.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..pipeline.programs import LocalPoints
+
+
+@dataclasses.dataclass
+class TexturedScene:
+    """Two fronto-parallel textured planes (near square over a far
+    backdrop): exactly renderable and view-consistent, so the FAST/ORB front
+    end re-finds the same corners across frames."""
+
+    tex_far: np.ndarray     # (T,T) texture of the far plane
+    tex_near: np.ndarray
+    z_far: float
+    z_near: float
+    near_extent: float      # near plane covers |x|,|y| <= near_extent
+    scale: float            # texels per meter
+
+
+def make_textured_scene(seed: int, tex_size: int = 1024, z_far: float = 14.0,
+                        z_near: float = 8.0, near_extent: float = 3.0,
+                        span: float = 40.0) -> TexturedScene:
+    rng = np.random.default_rng(seed)
+
+    def multiscale(t):
+        img = np.zeros((t, t), np.float32)
+        amp = 1.0
+        for cell in (4, 8, 16, 32):
+            g = rng.random((t // cell, t // cell)).astype(np.float32)
+            img += amp * np.kron(g, np.ones((cell, cell), np.float32))
+            amp *= 0.6
+        img -= img.min()
+        return img / img.max() * 215.0 + 20.0
+
+    return TexturedScene(
+        tex_far=multiscale(tex_size),
+        tex_near=multiscale(tex_size),
+        z_far=z_far,
+        z_near=z_near,
+        near_extent=near_extent,
+        scale=tex_size / span,
+    )
+
+
+def circular_trajectory(n_frames: int, radius: float = 2.0, z_amp: float = 0.2,
+                        look_at=(0.0, 0.0, 10.0), arc: float = 0.8,
+                        outward: bool = False):
+    """List of (R_cw, t_cw) float32 world->cam poses on a horizontal arc,
+    looking at a fixed target (or radially outward)."""
+    poses = []
+    look = np.asarray(look_at)
+    for i in range(n_frames):
+        a = arc * 2 * np.pi * i / n_frames
+        c = np.array([radius * np.sin(a), 0.3 * np.sin(2 * a), z_amp * np.sin(3 * a)])
+        fwd = np.array([np.sin(a), 0.0, np.cos(a)]) if outward else look - c
+        fwd = fwd / np.linalg.norm(fwd)
+        right = np.cross(fwd, np.array([0.0, -1.0, 0.0]))
+        right /= np.linalg.norm(right)
+        down = np.cross(fwd, right)
+        R_cw = np.stack([right, down, fwd], axis=1).T
+        poses.append((R_cw.astype(np.float32), (-R_cw @ c).astype(np.float32)))
+    return poses
+
+
+def _rays(cam, R_cw, t_cw):
+    """Per-pixel camera rays (h,w,3) with z = 1, world rays and the camera
+    centre."""
+    u, v = np.meshgrid(np.arange(cam.width, dtype=np.float32),
+                       np.arange(cam.height, dtype=np.float32))
+    rays_c = np.stack([(u - cam.cx) / cam.fx, (v - cam.cy) / cam.fy, np.ones_like(u)], axis=-1)
+    R_wc = R_cw.T
+    return rays_c, rays_c @ R_wc.T, -R_wc @ t_cw
+
+
+def render_image(scene: TexturedScene, cam, R_cw: np.ndarray, t_cw: np.ndarray) -> np.ndarray:
+    """Exact perspective render (per-pixel plane intersection +
+    nearest-texel sampling); (h, w) float32."""
+    _, rays_w, c = _rays(cam, R_cw, t_cw)
+
+    def sample(tex, z_plane):
+        lam = (z_plane - c[2]) / rays_w[..., 2]
+        X = c[None, None, :] + lam[..., None] * rays_w
+        tx = X[..., 0] * scene.scale + tex.shape[1] / 2
+        ty = X[..., 1] * scene.scale + tex.shape[0] / 2
+        ti = np.clip(np.round(ty).astype(np.int64), 0, tex.shape[0] - 1)
+        tj = np.clip(np.round(tx).astype(np.int64), 0, tex.shape[1] - 1)
+        return tex[ti, tj], X, lam
+
+    img_far, _, lam_far = sample(scene.tex_far, scene.z_far)
+    img_near, X_near, lam_near = sample(scene.tex_near, scene.z_near)
+    near_hit = (
+        (np.abs(X_near[..., 0]) <= scene.near_extent)
+        & (np.abs(X_near[..., 1]) <= scene.near_extent)
+        & (lam_near > 0)
+    )
+    img = np.where(near_hit & (lam_far > 0), img_near, img_far)
+    img = np.where(lam_far > 0, img, 40.0)
+    return img.astype(np.float32)
+
+
+def depth_map(scene: TexturedScene, cam, R_cw: np.ndarray, t_cw: np.ndarray) -> np.ndarray:
+    """Exact per-pixel z-depth of the two-plane scene; (h, w) float32, 0
+    where no plane is hit."""
+    _, rays_w, c = _rays(cam, R_cw, t_cw)
+    lam_far = (scene.z_far - c[2]) / rays_w[..., 2]
+    lam_near = (scene.z_near - c[2]) / rays_w[..., 2]
+    X_near = c[None, None, :] + lam_near[..., None] * rays_w
+    near_hit = (
+        (np.abs(X_near[..., 0]) <= scene.near_extent)
+        & (np.abs(X_near[..., 1]) <= scene.near_extent)
+        & (lam_near > 0)
+    )
+    # rays have z = 1 in the camera frame, so the ray parameter is the depth
+    lam = np.where(near_hit & (lam_far > 0), lam_near, lam_far)
+    return np.where(lam > 0, lam, 0.0).astype(np.float32)
+
+
+def local_points_from_keyframes(cam, feats_list, poses, depth_maps, cap: int,
+                                n_levels: int = 8, scale: float = 1.2) -> LocalPoints:
+    """`LocalPoints` from keyframe features: every valid keypoint with depth
+    at its nearest pixel is back-projected; its normal is the unit vector
+    from the keyframe centre, max_dist = dist * scale^level and
+    min_dist = max_dist / scale^(n_levels-1); descriptor and angle are the
+    keyframe's. Keyframes are taken in order, truncated and padded to
+    `cap`. The result lies on the device of the features."""
+    pos, desc, normal, dist_all, level, angle = [], [], [], [], [], []
+    for f, (R_cw, t_cw), depth in zip(feats_list, poses, depth_maps):
+        xy = f.xy.cpu().numpy()
+        ok = f.valid.cpu().numpy()
+        px = np.clip(np.round(xy).astype(np.int64), 0, [depth.shape[1] - 1, depth.shape[0] - 1])
+        z = depth[px[:, 1], px[:, 0]]
+        ok &= z > 0
+        pc = np.stack([(xy[:, 0] - cam.cx) / cam.fx * z, (xy[:, 1] - cam.cy) / cam.fy * z, z], -1)
+        pw = (pc[ok] - t_cw) @ R_cw  # R^T (pc - t)
+        d = pw - (-R_cw.T @ t_cw)
+        dist = np.linalg.norm(d, axis=-1)
+        pos.append(pw)
+        normal.append(d / np.maximum(dist[:, None], 1e-9))
+        dist_all.append(dist)
+        level.append(f.level.cpu().numpy()[ok])
+        desc.append(f.desc.cpu().numpy()[ok])
+        angle.append(f.angle.cpu().numpy()[ok])
+
+    n = min(cap, sum(len(p) for p in pos))
+
+    def padded(parts, dtype):
+        a = np.concatenate(parts)[:n].astype(dtype)
+        out = np.zeros((cap,) + a.shape[1:], dtype)
+        out[:n] = a
+        return torch.from_numpy(out).to(feats_list[0].xy.device)
+
+    max_dist = np.concatenate(dist_all) * scale ** np.concatenate(level).astype(np.float64)
+    return LocalPoints(
+        pos=padded(pos, np.float32),
+        desc=padded(desc, np.int32),
+        normal=padded(normal, np.float32),
+        min_dist=padded([max_dist / scale ** (n_levels - 1)], np.float32),
+        max_dist=padded([max_dist], np.float32),
+        valid=torch.arange(cap, device=feats_list[0].xy.device) < n,
+        angle=padded(angle, np.float32),
+    )
