@@ -1,12 +1,17 @@
-"""State carried between the JAX package and the port.
+"""State carried between the JAX package and the port, and from host numpy
+onto the device.
 
-The tracking slice has no learned weights: its state is the camera, the
-frame features and the local map, plus static tables that both packages
-rebuild from the same recipes. These helpers move the containers across as
-numpy arrays (from the JAX side take `np.asarray` of each field, e.g.
-`{k: np.asarray(v) for k, v in feats._asdict().items()}`), so this module
-needs no JAX. Descriptors are uint32 on the JAX side and int32 here, the
-same bits viewed through another dtype.
+The system has no learned weights: its state is the camera, the
+configuration, the frame features, the map (host numpy in both packages)
+and the padded views the device programs take (local points, BA problems).
+These helpers move the containers across as numpy arrays (from the JAX side
+take `np.asarray` of each field, e.g. `{k: np.asarray(v) for k, v in
+feats._asdict().items()}`), so this module needs no JAX. Descriptors are
+uint32 on the JAX side and in the map, int32 in tensors: the same bits
+viewed through another dtype.
+
+Tensors are made on the card (`device="cuda"`) unless the caller asks for
+another device, as the CPU tests do.
 """
 
 from __future__ import annotations
@@ -18,8 +23,11 @@ import numpy as np
 import torch
 
 from .frontend.types import Features
+from .map.state import MapConfig, MapState
 from .ops.cameras import Camera
+from .optim.ba import BAProblem
 from .pipeline.programs import LocalPoints
+from .utils.config import SlamConfig
 
 
 def camera_from_jax(cam) -> Camera:
@@ -27,32 +35,88 @@ def camera_from_jax(cam) -> Camera:
     return Camera(**{f.name: getattr(cam, f.name) for f in dataclasses.fields(Camera)})
 
 
+def config_from_jax(cfg) -> SlamConfig:
+    """The port's SlamConfig with the fields of a JAX-package SlamConfig."""
+    return SlamConfig(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(SlamConfig)})
+
+
+def desc_tensor(desc: np.ndarray, device="cuda") -> torch.Tensor:
+    """(..., 8) uint32 descriptor words as an int32 tensor on `device`."""
+    return torch.from_numpy(np.array(desc, np.uint32).view(np.int32)).to(device)  # a writable copy
+
+
+_INT_FIELDS = ("level", "obs_cam", "obs_level")
+_BOOL_FIELDS = ("valid", "cam_fixed", "p_valid", "obs_valid")
+
+
 def _tensor(name: str, a, device) -> torch.Tensor:
     a = np.asarray(a)
     if name == "desc":
-        a = np.ascontiguousarray(a, dtype=np.uint32).view(np.int32)
-    elif name == "valid":
+        return desc_tensor(a, device)
+    if name in _BOOL_FIELDS:
         a = a.astype(bool)
-    elif name == "level":
+    elif name in _INT_FIELDS:
         a = a.astype(np.int32)
     else:
         a = a.astype(np.float32)
     return torch.from_numpy(np.array(a)).to(device)  # a writable copy
 
 
-def features_from_numpy(arrays: Mapping[str, np.ndarray], device="cpu") -> Features:
+def features_from_numpy(arrays: Mapping[str, np.ndarray], device="cuda") -> Features:
     return Features(**{k: _tensor(k, arrays[k], device) for k in Features._fields})
 
 
-def local_points_from_numpy(arrays: Mapping[str, np.ndarray], device="cpu") -> LocalPoints:
+def local_points_from_numpy(arrays: Mapping[str, np.ndarray], device="cuda") -> LocalPoints:
     return LocalPoints(**{k: _tensor(k, arrays[k], device) for k in LocalPoints._fields})
 
 
+def local_points_from_map(m: MapState, ids: np.ndarray, cap: int, device="cuda") -> LocalPoints:
+    """The map points `ids` (at most `cap`) as a LocalPoints view padded
+    to `cap` rows, on `device`."""
+    ids = np.asarray(ids)[:cap]
+    fields = {"pos": m.mp_pos, "desc": m.mp_desc, "normal": m.mp_normal, "min_dist": m.mp_min_dist,
+              "max_dist": m.mp_max_dist, "valid": m.mp_valid, "angle": m.mp_angle}
+    padded = {}
+    for k, a in fields.items():
+        out = np.zeros((cap,) + a.shape[1:], a.dtype)
+        out[: len(ids)] = True if k == "valid" else a[ids]
+        padded[k] = out
+    return local_points_from_numpy(padded, device)
+
+
+def ba_problem_from_numpy(arrays: Mapping[str, np.ndarray], device="cuda") -> BAProblem:
+    """A windowed BA problem from its padded arrays (the fields of the JAX
+    package's BAProblem; the rig fields are not ported)."""
+    return BAProblem(**{k: _tensor(k, arrays[k], device) for k in BAProblem._fields})
+
+
 def to_numpy(container) -> dict:
-    """Fields of a port NamedTuple (Features, LocalPoints, TrackResult) as
-    numpy arrays, descriptors viewed back as uint32."""
+    """Fields of a port NamedTuple (Features, LocalPoints, TrackResult,
+    BAProblem) as numpy arrays, descriptors viewed back as uint32."""
     out = {}
     for k, v in container._asdict().items():
         a = v.detach().cpu().numpy()
         out[k] = a.view(np.uint32) if k == "desc" else a
     return out
+
+
+def map_state_to_numpy(m) -> dict:
+    """Every array and counter of a MapState (either package's: both are
+    host numpy) as a dict of copies; the config under "cfg"."""
+    out = {"cfg": dataclasses.asdict(m.cfg)}
+    for k, v in vars(m).items():
+        if isinstance(v, np.ndarray):
+            out[k] = v.copy()
+        elif isinstance(v, (int, float, list, dict)) and k != "cfg":
+            out[k] = type(v)(v)
+    return out
+
+
+def map_state_from_numpy(arrays: Mapping) -> MapState:
+    """The port's MapState holding copies of what `map_state_to_numpy`
+    gave."""
+    m = MapState(MapConfig(**arrays["cfg"]))
+    for k, v in arrays.items():
+        if k != "cfg":
+            setattr(m, k, v.copy() if isinstance(v, np.ndarray) else type(v)(v))
+    return m

@@ -34,7 +34,9 @@ class Features(NamedTuple):
     depth: torch.Tensor
 
 
-def empty_features(n: int, device=None) -> Features:
+def empty_features(n: int, device="cuda") -> Features:
+    """n invalid feature slots on `device` (the card unless the caller asks
+    for another)."""
     f32 = dict(dtype=torch.float32, device=device)
     return Features(
         xy=torch.zeros((n, 2), **f32),

@@ -35,6 +35,14 @@ class Camera:
     fps: float = 20.0
 
 
+def camera_matrix(cam: Camera, device=None) -> torch.Tensor:
+    """The (3,3) float32 intrinsic matrix, the JAX package's `Camera.K`."""
+    return torch.tensor(
+        [[cam.fx, 0.0, cam.cx], [0.0, cam.fy, cam.cy], [0.0, 0.0, 1.0]],
+        dtype=torch.float32, device=device,
+    )
+
+
 def _require_pinhole(cam: Camera):
     if cam.kind != PINHOLE:
         raise NotImplementedError("only the pinhole camera model is ported")

@@ -1,6 +1,7 @@
 """SO(3) / SE(3) operations on the per-frame path.
 
-Port of the SO(3)/SE(3) part of `orb_slam3_comments_ghr_tpu/ops/lie.py`.
+Port of the SO(3)/SE(3) and quaternion part of
+`orb_slam3_comments_ghr_tpu/ops/lie.py`.
 Rotations are (...,3,3) matrices, translations (...,3) vectors; every
 function broadcasts over leading batch dims. The se3 tangent is ordered
 [rho (translation), phi (rotation)], as g2o's SE3Quat.
@@ -72,6 +73,48 @@ def se3_mul(Ra, ta, Rb, tb):
     return Ra @ Rb, _matvec(Ra, tb) + ta
 
 
+def se3_inv(R, t):
+    Rt = R.transpose(-1, -2)
+    return Rt, -_matvec(Rt, t)
+
+
 def se3_apply(R, t, p):
     """Transform points p (...,3)."""
     return _matvec(R, p) + t
+
+
+def vee(M: torch.Tensor) -> torch.Tensor:
+    """Inverse of hat: (...,3,3) -> (...,3)."""
+    return torch.stack([M[..., 2, 1], M[..., 0, 2], M[..., 1, 0]], dim=-1)
+
+
+def mat_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix -> quaternion (w,x,y,z), branch-free Shepperd method,
+    w >= 0."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+    # four candidate quaternions (up to scale), one per Shepperd case
+    qw = torch.stack([1.0 + tr, m21 - m12, m02 - m20, m10 - m01], dim=-1)
+    qx = torch.stack([m21 - m12, 1.0 + m00 - m11 - m22, m01 + m10, m02 + m20], dim=-1)
+    qy = torch.stack([m02 - m20, m01 + m10, 1.0 - m00 + m11 - m22, m12 + m21], dim=-1)
+    qz = torch.stack([m10 - m01, m02 + m20, m12 + m21, 1.0 - m00 - m11 + m22], dim=-1)
+    cases = torch.stack([qw, qx, qy, qz], dim=-2)  # (...,4,4)
+    scores = torch.stack([tr, m00 - m11 - m22, m11 - m00 - m22, m22 - m00 - m11], dim=-1)
+    idx = torch.argmax(scores, dim=-1)  # first of ties, as jnp.argmax
+    q = torch.gather(cases, -2, idx[..., None, None].expand(idx.shape + (1, 4)))[..., 0, :]
+    q = q / torch.clamp_min(torch.linalg.norm(q, dim=-1, keepdim=True), 1e-12)
+    return q * torch.where(q[..., :1] < 0, -1.0, 1.0)
+
+
+def so3_log(R: torch.Tensor) -> torch.Tensor:
+    """Log map (...,3,3) -> (...,3) through the quaternion (stable near pi)."""
+    q = mat_to_quat(R)
+    w, v = q[..., 0], q[..., 1:]
+    n = torch.linalg.norm(v, dim=-1)
+    theta = 2.0 * torch.atan2(n, w)
+    small = n < 1e-6
+    safe_n = torch.where(small, torch.ones_like(n), n)
+    scale = torch.where(small, 2.0 / torch.clamp_min(w, 1e-6), theta / safe_n)
+    return scale[..., None] * v

@@ -107,3 +107,33 @@ def search_by_window(desc_q, desc_t, mask, th: int = TH_LOW, ratio: float = 0.9)
     """Constrained matcher. Returns (idx (N,), dist (N,), valid (N,))."""
     idx, best, second = masked_best2(hamming_matrix(desc_q, desc_t), mask)
     return idx, best, ratio_test(best, second, th, ratio)
+
+
+def search_for_initialization(feats_a, feats_b, window: float = 100.0, ratio: float = 0.9):
+    """Monocular-initialization matching (SearchForInitialization,
+    ORBmatcher.cc:735): level-0 features of frame A matched to level-0
+    features of frame B inside a +-window pixel box, TH_LOW + ratio +
+    rotation check + duplicate resolution. Returns (idx, dist, ok).
+
+    The box search is the window match's function, so it runs through
+    `window_match` (the Hopper kernel on CUDA tensors): rows of A that are
+    not level 0 come in with radius -1, B's level-0 mask is the target
+    valid flag, and the octave band [-1, BIG] passes every level."""
+    from .window_match import window_match  # here: window_match imports this module
+
+    n = feats_a.xy.shape[0]
+    f32 = torch.float32
+    lev0_a = feats_a.valid & (feats_a.level == 0)
+    lev0_b = feats_b.valid & (feats_b.level == 0)
+    dev = feats_a.xy.device
+    idx, best, second = window_match(
+        feats_a.desc, feats_a.xy,
+        torch.where(lev0_a, window, -1.0).to(f32),
+        torch.full((n,), -1.0, dtype=f32, device=dev),
+        torch.full((n,), float(BIG), dtype=f32, device=dev),
+        feats_b.desc, feats_b.xy, feats_b.level.to(f32), lev0_b.to(f32),
+    )
+    ok = ratio_test(best, second, TH_LOW, ratio)
+    ok = rotation_consistency(feats_a.angle, feats_b.angle, idx, ok)
+    ok = resolve_duplicates(idx, best, ok, feats_b.xy.shape[0])
+    return idx, best, ok

@@ -1,11 +1,17 @@
-"""The per-frame monocular tracking program.
+"""The per-frame monocular tracking program and the mapper's programs.
 
-Port of `LocalPoints`, `TrackResult`, `_frustum_gate`,
-`track_against_points`, `extract_only`, `track_only` and
-`extract_and_track` from `orb_slam3_comments_ghr_tpu/pipeline/programs.py`:
-ORB extraction, then frustum gate, windowed Hamming top-2 with ratio test,
-duplicate resolution, rotation histogram and the 4-round Huber pose LM
-(Tracking.cc TrackLocalMap / SearchByProjection / PoseOptimization).
+Port of `orb_slam3_comments_ghr_tpu/pipeline/programs.py`, monocular part:
+- per frame: ORB extraction, then frustum gate, windowed Hamming top-2 with
+  ratio test, duplicate resolution, rotation histogram and the 4-round Huber
+  pose LM (Tracking.cc TrackLocalMap / SearchByProjection /
+  PoseOptimization): `extract_only`, `track_against_points`,
+  `extract_and_track`;
+- per keyframe: epipolar matching and triangulation against the covisible
+  neighbours (`map_new_points_multi`) and the projection fuse into them
+  (`fuse_project_multi`).
+
+The projection searches of tracking and fuse go through `window_match`, the
+hand-written kernel on CUDA tensors.
 
 PyTorch runs eagerly, so there is no jit and `track_only` is
 `track_against_points` itself. Everything runs on the device of its inputs.
@@ -18,7 +24,7 @@ from typing import NamedTuple
 import torch
 
 from ..frontend.batched import extract_batched
-from ..ops import cameras, lie, matching
+from ..ops import cameras, lie, matching, triangulate
 from ..ops.window_match import window_match
 from ..optim import pose_opt
 
@@ -160,3 +166,115 @@ def extract_and_track(
     )
     res = track_against_points(geom_cam, feats, pts, R0, t0, th=th, n_levels=n_levels, scale=scale)
     return feats, res
+
+
+def epipolar_match(cam: cameras.Camera, desc1, xy1, level1, free1,
+                   desc2, xy2, level2, free2, R12, t12):
+    """SearchForTriangulation (ORBmatcher.cc:1045): match the unassociated
+    features of two keyframes inside the epipolar band (squared point-line
+    distance < 3.84 sigma^2 of the second keypoint's octave), TH_LOW, ratio
+    0.6, one match per second-view feature. The band is not a window, so
+    this runs the plain masked matcher. Returns (idx, ok)."""
+    K = cameras.camera_matrix(cam, xy1.device)
+    Kinv = torch.linalg.inv_ex(K)[0]
+    F = Kinv.T @ (lie.hat(t12) @ R12) @ Kinv  # x1^T F x2 = 0
+    lines2 = _homog(xy1) @ F                   # (N1,3) lines in image 2
+    num = lines2 @ _homog(xy2).T
+    den = torch.clamp_min(lines2[:, 0:1] ** 2 + lines2[:, 1:2] ** 2, 1e-12)
+    sigma2 = (1.2 ** level2.to(torch.float32)) ** 2
+    mask = (num * num / den < 3.84 * sigma2[None, :]) & free1[:, None] & free2[None, :]
+    idx, dist, ok = matching.search_by_window(desc1, desc2, mask, th=matching.TH_LOW, ratio=0.6)
+    return idx, matching.resolve_duplicates(idx, dist, ok, desc2.shape[0])
+
+
+def _homog(x):
+    return torch.cat([x, torch.ones_like(x[:, :1])], dim=-1)
+
+
+def triangulate_matches(cam: cameras.Camera, R1, t1, R2, t2, uv1, uv2, level1, level2, ok,
+                        ur1, ur2, scale: float = 1.2):
+    """Triangulate candidate pairs and apply CreateNewMapPoints' gates
+    (LocalMapping.cc:640-930): parallax, cheirality, per-view chi2 (5.991
+    mono / 7.8 stereo), scale consistency. Returns (world points, good)."""
+    K = cameras.camera_matrix(cam, uv1.device)
+    X = triangulate.triangulate(triangulate.projection_matrix(K, R1, t1),
+                                triangulate.projection_matrix(K, R2, t2), uv1, uv2)
+
+    def checks(Rk, tk, uvk, urk, lvlk):
+        pc = lie.se3_apply(Rk, tk, X)
+        z = pc[..., 2]
+        uv_hat = cameras.project(cam, pc)
+        sigma2 = scale ** (2.0 * lvlk.to(torch.float32))
+        e2 = torch.sum((uvk - uv_hat) ** 2, dim=-1)
+        is_stereo = urk >= 0
+        ur_hat = cameras.stereo_right_u(cam, uv_hat[..., 0], torch.clamp_min(z, 1e-6))
+        e2s = e2 + torch.where(is_stereo, (urk - ur_hat) ** 2, 0.0)
+        return (z > 0) & (e2s < torch.where(is_stereo, 7.8, 5.991) * sigma2)
+
+    ok1 = checks(R1, t1, uv1, ur1, level1)
+    ok2 = checks(R2, t2, uv2, ur2, level2)
+    # parallax between the rays, and scale consistency (ratioDist against
+    # ratioFactor = 1.5 * scale)
+    r1v = X + R1.T @ t1  # X - centre 1
+    r2v = X + R2.T @ t2
+    d1 = torch.linalg.norm(r1v, dim=-1)
+    d2 = torch.linalg.norm(r2v, dim=-1)
+    cosp = torch.sum(r1v * r2v, -1) / torch.clamp_min(d1 * d2, 1e-12)
+    ratio_dist = d2 / torch.clamp_min(d1, 1e-9)
+    ratio_octave = scale ** (level1.to(torch.float32) - level2.to(torch.float32))
+    rf = 1.5 * scale
+    scale_ok = (ratio_dist * rf > ratio_octave) & (ratio_dist < ratio_octave * rf)
+    good = ok & ok1 & ok2 & (cosp < 0.9998) & scale_ok & torch.isfinite(X).all(-1)
+    return X, good
+
+
+def map_new_points_multi(cam: cameras.Camera, desc1, xy1, level1, ur1, free1, R1, t1,
+                         desc2s, xy2s, level2s, ur2s, free2s, R2s, t2s, scale: float = 1.2):
+    """CreateNewMapPoints over the covisible neighbours (stacked on a
+    leading axis B): epipolar matching + triangulation + gates per
+    neighbour. Returns (idx (B,N), X (B,N,3), good (B,N))."""
+    out = []
+    for desc2, xy2, level2, ur2, free2, R2, t2 in zip(desc2s, xy2s, level2s, ur2s, free2s, R2s, t2s):
+        R12 = R1 @ R2.T
+        idx, ok = epipolar_match(cam, desc1, xy1, level1, free1, desc2, xy2, level2, free2,
+                                 R12, t1 - R12 @ t2)
+        sel = idx.long()
+        X, good = triangulate_matches(cam, R1, t1, R2, t2, xy1, xy2[sel], level1, level2[sel],
+                                      ok, ur1, ur2[sel], scale)
+        out.append((idx, X, good))
+    return tuple(torch.stack(parts) for parts in zip(*out))
+
+
+def fuse_project(cam: cameras.Camera, R, t, pts: LocalPoints,
+                 feat_xy, feat_level, feat_desc, feat_valid, feat_mp,
+                 n_levels: int = 8, scale: float = 1.2):
+    """ORBmatcher::Fuse (ORBmatcher.cc:1330): project points into a
+    keyframe and take the best feature within radius 3 scale^level and the
+    octave band level +- 1 (TH_LOW, no ratio), one point per feature.
+    Returns (idx, ok, existing): `existing` is the map point already on
+    that feature (-1 if none); the host owns Replace().
+
+    The search is the window match's function: it launches the kernel on
+    CUDA tensors, with invisible points at radius -1."""
+    visible, uv_pred, level_pred, _ = _frustum_gate(cam, R, t, pts, n_levels, scale)
+    radius = 3.0 * torch.pow(scale, level_pred.to(torch.float32))
+    idx, best, second = window_match(
+        pts.desc, uv_pred, torch.where(visible, radius, -1.0),
+        (level_pred - 1).to(torch.float32), (level_pred + 1).to(torch.float32),
+        feat_desc, feat_xy, feat_level.to(torch.float32), feat_valid.to(torch.float32),
+    )
+    ok = matching.ratio_test(best, second, matching.TH_LOW, 1.0)
+    ok = matching.resolve_duplicates(idx, best, ok, feat_xy.shape[0])
+    return idx, ok, feat_mp[idx.long()]
+
+
+def fuse_project_multi(cam: cameras.Camera, Rs, ts, pts: LocalPoints,
+                       feat_xys, feat_levels, feat_descs, feat_valids, feat_mps,
+                       n_levels: int = 8, scale: float = 1.2):
+    """SearchInNeighbors' Fuse into each neighbour keyframe (stacked on a
+    leading axis B), one window-match launch per neighbour. Returns (idx,
+    ok, existing), each (B, L)."""
+    out = [fuse_project(cam, *per_kf, pts, *feat, n_levels=n_levels, scale=scale)
+           for per_kf, feat in zip(zip(Rs, ts), zip(feat_xys, feat_levels, feat_descs,
+                                                    feat_valids, feat_mps))]
+    return tuple(torch.stack(parts) for parts in zip(*out))

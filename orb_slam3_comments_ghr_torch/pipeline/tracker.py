@@ -1,0 +1,562 @@
+"""Host tracking state machine, monocular visual path.
+
+Port of `orb_slam3_comments_ghr_tpu/pipeline/tracker.py` without its
+inertial, stereo/RGB-D and deep-pipeline branches: the OK / RECENTLY_LOST /
+LOST ladder (Tracking.h:133-142, Tracking.cc:2009 Track()), two-view
+initialization, keyframe decision, the reference-keyframe fallback and
+relocalization. The map stays host numpy; extraction, matching, pose LM,
+two-view RANSAC, PnP and BA run on the tracker's device: the card unless the
+caller passes `device="cpu"`. A tracked frame comes back to the host in one
+packed copy.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .. import convert
+from ..frontend.types import Features
+from ..map.state import MapState
+from ..ops import cameras, matching
+from ..optim import ba, pnp, pose_opt, twoview
+from ..utils.config import SlamConfig
+from ..utils.device import resolve_device
+from . import programs
+
+NO_IMAGES_YET = 0
+NOT_INITIALIZED = 1
+OK = 2
+RECENTLY_LOST = 3
+LOST = 4
+
+STATE_NAMES = {0: "NO_IMAGES_YET", 1: "NOT_INITIALIZED", 2: "OK",
+               3: "RECENTLY_LOST", 4: "LOST"}
+
+_FEATURE_FIELDS = ("xy", "level", "angle", "desc", "valid", "u_right", "depth")
+
+
+def _np_feats(feats: Features) -> dict:
+    """The features the map keeps, as numpy, in one device->host copy: every
+    field is viewed as int32 words, concatenated, copied, and split."""
+    f32, i32 = torch.float32, torch.int32
+    cols = [getattr(feats, k) for k in _FEATURE_FIELDS]
+    cols = [c.view(i32) if c.dtype == f32 else c.to(i32) for c in cols]
+    n = feats.xy.shape[0]
+    flat = torch.cat([c.reshape(n, -1) for c in cols], dim=1).cpu().numpy()
+    out, at = {}, 0
+    for k, c, src in zip(_FEATURE_FIELDS, cols, (getattr(feats, k) for k in _FEATURE_FIELDS)):
+        w = c.reshape(n, -1).shape[1]
+        a = flat[:, at:at + w].reshape(c.shape)
+        at += w
+        if src.dtype == f32:
+            a = a.view(np.float32)
+        elif k == "desc":
+            a = a.view(np.uint32)
+        elif src.dtype == torch.bool:
+            a = a.astype(bool)
+        out[k] = np.ascontiguousarray(a)
+    return out
+
+
+def _fetch_track(res: programs.TrackResult) -> programs.TrackResult:
+    """A device TrackResult as numpy, in one device->host copy (every value
+    fits float32 exactly: indices < 2^24)."""
+    L = res.match_feat.shape[0]
+    f32 = torch.float32
+    flat = torch.cat([
+        res.R.reshape(9), res.t, res.n_inliers.reshape(1).to(f32),
+        res.match_feat.to(f32), res.inlier.to(f32), res.visible.to(f32),
+    ]).cpu().numpy()
+    return programs.TrackResult(
+        R=flat[:9].reshape(3, 3), t=flat[9:12], n_inliers=int(flat[12]),
+        match_feat=flat[13:13 + L].astype(np.int32),
+        inlier=flat[13 + L:13 + 2 * L] > 0.5,
+        visible=flat[13 + 2 * L:] > 0.5,
+    )
+
+
+def _seed(generator: torch.Generator, rng: np.random.Generator) -> torch.Generator:
+    """Seed the generator from two draws of the numpy stream, the draws the
+    JAX tracker turns into a PRNG key (tracker.py:358, :914)."""
+    hi, lo = rng.integers(0, 2**31, 2)
+    return generator.manual_seed(int(hi) << 31 | int(lo))
+
+
+@dataclasses.dataclass
+class FrameRecord:
+    """Per-frame trajectory entry (mlRelativeFramePoses, Tracking.h:164-169):
+    the pose relative to its reference KF, so later KF optimization improves
+    the exported trajectory."""
+
+    timestamp: float
+    ref_kf: int
+    T_cr: np.ndarray   # 4x4, cam-in-refKF
+    lost: bool
+
+
+class Tracker:
+    def __init__(self, cam: cameras.Camera, cfg: SlamConfig, map_state: MapState,
+                 kfdb=None, imu=None, device=None):
+        if imu is not None:
+            raise NotImplementedError("inertial tracking is not ported yet (ROADMAP A5)")
+        self.cam = cam
+        self.cfg = cfg
+        self.map = map_state
+        self.kfdb = kfdb  # retrieval.database.KeyFrameDatabase (optional)
+        self.device = resolve_device(device)
+        self.generator = torch.Generator(device=self.device)
+        self.state = NO_IMAGES_YET
+        self.last_R = np.eye(3, dtype=np.float32)
+        self.last_t = np.zeros(3, np.float32)
+        self.velocity: Optional[np.ndarray] = None  # 4x4 Tcl (const-velocity)
+        self.last_kf: int = -1
+        self.frames_since_kf = 0
+        self.frame_id = -1
+        self.last_time = 0.0
+        self.lost_since: float = 0.0
+        # mono init buffers
+        self._init_feats = None
+        self._init_time = None
+        self.records: list[FrameRecord] = []
+        self.pending_kf: Optional[int] = None  # set when a KF was created
+        self.localization_only = False  # ActivateLocalizationMode (System.h:123)
+        self._rng = np.random.default_rng(0)
+        self.last_reloc_frame = -(10 ** 9)  # mnLastRelocFrameId
+        self._prepared_th = 1.0  # search-window multiplier of the prepared frame
+        self._prepared_ts = None
+        self._prepared = None  # (lp, ids, R0, t0) of the prepared frame
+        self._precomputed = None
+        self._lp_cache = None  # (key, lp, ids) of the last local-point view
+
+    def _tensor(self, a) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a), device=self.device)
+
+    # ---------------------------------------------------------------- public
+    def prepare_frame(self, timestamp: float):
+        """What the fused per-frame program needs: timestamp fault handling,
+        pose prediction and the local point view. Returns (ready, lp, ids,
+        R0, t0); ready=False means init / relocalization / wide search."""
+        self._run_frame_prologue(timestamp)
+        self._prepared_ts = timestamp
+        if self.state != OK or self.last_kf < 0:
+            return False, None, None, None, None
+        R0, t0 = self._predict_pose()
+        lp, ids = self._local_points_view()
+        self._prepared = (lp, ids, R0, t0)
+        self._prepared_th = self._search_th()
+        return True, lp, ids, self._tensor(R0), self._tensor(t0)
+
+    def _search_th(self) -> float:
+        """Projection search-window multiplier: with no motion model yet
+        (first frame after init / reloc) the prediction is a whole frame
+        stale, so the single fused pass widens its window
+        (the reference's TrackReferenceKeyFrame, Tracking.cc:2205-2212)."""
+        if self.state != OK or self.velocity is None:
+            return 6.0
+        return 1.0
+
+    def _run_frame_prologue(self, timestamp: float):
+        self.pending_kf = None
+        # non-monotonic timestamps open a fresh sub-map (Tracking.cc:2039-2094)
+        if self.state not in (NO_IMAGES_YET, NOT_INITIALIZED) and timestamp < self.last_time:
+            self._handle_lost()
+
+    def track(self, feats: Features, timestamp: float, precomputed=None) -> Optional[np.ndarray]:
+        """Process one frame's features; returns 4x4 Tcw or None if lost.
+        `precomputed` is the (res,) of the fused program run against the
+        arrays from prepare_frame."""
+        self.frame_id += 1
+        if self._prepared_ts != timestamp:
+            self._run_frame_prologue(timestamp)
+        self._precomputed = precomputed
+        if self.state == NO_IMAGES_YET:
+            self.state = NOT_INITIALIZED
+
+        if self.state == NOT_INITIALIZED:
+            done = self._initialize_mono(feats, timestamp)
+            if done:
+                self.state = OK
+            self.last_time = timestamp
+            return self._current_pose() if done else None
+
+        if self.state == RECENTLY_LOST and self.kfdb is not None:
+            # visual relocalization ladder (Tracking.cc:4444)
+            if self._relocalize(feats):
+                self.state = OK
+                self.last_reloc_frame = self.frame_id
+        ok = self._track_frame(feats, timestamp)
+        if ok:
+            self.state = OK
+            self.lost_since = 0.0
+        else:
+            if self.state == OK:
+                self.state = RECENTLY_LOST
+                self.lost_since = timestamp
+            elif self.state == RECENTLY_LOST:
+                if timestamp - self.lost_since > self.cfg.recently_lost_secs:
+                    self.state = LOST
+            if self.state == LOST:
+                self._handle_lost()
+        self.last_time = timestamp
+        self._record_frame(timestamp, lost=not ok)
+        return self._current_pose() if ok else None
+
+    # ------------------------------------------------------------- internals
+    def _current_pose(self) -> np.ndarray:
+        T = np.eye(4, dtype=np.float32)
+        T[:3, :3] = self.last_R
+        T[:3, 3] = self.last_t
+        return T
+
+    def _record_frame(self, timestamp: float, lost: bool):
+        ref = self.last_kf
+        T_cw = self._current_pose()
+        T_rw = np.eye(4, dtype=np.float32)
+        if ref >= 0:
+            T_rw[:3, :3] = self.map.kf_R[ref]
+            T_rw[:3, 3] = self.map.kf_t[ref]
+        self.records.append(FrameRecord(timestamp, ref, T_cw @ np.linalg.inv(T_rw), lost))
+
+    def _register_kf(self, kf: int):
+        if self.kfdb is not None:
+            m = self.map
+            self.kfdb.add(kf, m.kf_feat_desc[kf], m.kf_feat_valid[kf])
+
+    def _initialize_mono(self, feats: Features, timestamp: float) -> bool:
+        n_valid = int(feats.valid.sum())
+        if self._init_feats is None:
+            if n_valid > self.cfg.min_init_matches:
+                self._init_feats = feats
+                self._init_time = timestamp
+            return False
+        if n_valid <= self.cfg.min_init_matches:
+            self._init_feats = None
+            return False
+
+        idx, dist, ok = matching.search_for_initialization(
+            self._init_feats, feats, window=100.0, ratio=0.9
+        )
+        if int(ok.sum()) < self.cfg.min_init_matches:
+            # keep the newer frame as the init candidate (ref does the same)
+            self._init_feats = feats
+            self._init_time = timestamp
+            return False
+
+        res = twoview.reconstruct(self.cam, self._init_feats.xy, feats.xy[idx.long()], ok,
+                                  _seed(self.generator, self._rng))
+        if not bool(res.success):
+            return False
+        self._create_initial_map_mono(self._init_feats, feats, idx, res, self._init_time, timestamp)
+        self._init_feats = None
+        return True
+
+    def _create_initial_map_mono(self, f1, f2, match_idx, res, t1, t2):
+        """CreateInitialMapMonocular (Tracking.cc:3001): two KFs, the
+        triangulated points, a 20-iteration BA, then median-depth
+        normalization to 1."""
+        m = self.map
+        f1n, f2n = _np_feats(f1), _np_feats(f2)
+        kf1 = m.add_keyframe(np.eye(3, dtype=np.float32), np.zeros(3, np.float32), f1n, t1)
+        kf2 = m.add_keyframe(res.R.cpu().numpy(), res.t.cpu().numpy(), f2n, t2,
+                             parent=kf1, prev=kf1)
+        gi = np.nonzero(res.good.cpu().numpy())[0]
+        feat2 = match_idx.cpu().numpy()[gi]
+        ids = m.add_map_points(res.points.cpu().numpy()[gi], f1n["desc"][gi], kf1, gi)
+        for j, mp in enumerate(ids):
+            if mp >= 0:
+                m.add_observation(int(mp), kf2, int(feat2[j]))
+
+        self._initial_ba(kf1, kf2)
+
+        # median-depth normalization (Tracking.cc:3076-3085)
+        mp_ids = m.mp_ids()
+        depths = (m.mp_pos[mp_ids] @ m.kf_R[kf1].T + m.kf_t[kf1])[:, 2]
+        med = float(np.median(depths))
+        if med < 0:
+            med = 1.0
+        s = 1.0 / med
+        m.mp_pos[mp_ids] *= s
+        m.kf_t[kf1] *= s
+        m.kf_t[kf2] *= s
+        # normals/distance bands must reflect the final (scaled) geometry
+        m.update_point_geometry(mp_ids)
+        self._register_kf(kf1)
+        self._register_kf(kf2)
+
+        self.last_kf = kf2
+        self.last_R = m.kf_R[kf2].copy()
+        self.last_t = m.kf_t[kf2].copy()
+        self.velocity = None
+        self.frames_since_kf = 0
+        self.pending_kf = kf2
+
+    def _initial_ba(self, kf1: int, kf2: int):
+        prob = self._build_two_kf_problem(kf1, kf2)
+        Rn, tn, pn, _, _ = ba.bundle_adjust(self.cam, prob, iters=20)
+        m = self.map
+        m.kf_R[kf2] = Rn[1].cpu().numpy()
+        m.kf_t[kf2] = tn[1].cpu().numpy()
+        ids = self._last_prob_ids
+        m.mp_pos[ids] = pn.cpu().numpy()[: len(ids)]
+
+    def _build_two_kf_problem(self, kf1: int, kf2: int) -> ba.BAProblem:
+        m = self.map
+        ids = m.mp_ids()
+        self._last_prob_ids = ids
+        P, D = len(ids), 2
+        obs_cam = np.zeros((P, D), np.int32)
+        obs_uv = np.zeros((P, D, 2), np.float32)
+        obs_level = np.zeros((P, D), np.int32)
+        obs_valid = np.zeros((P, D), bool)
+        for j, mp in enumerate(ids):
+            for s in range(m.cfg.obs_cap):
+                kf = m.mp_obs_kf[mp, s]
+                if kf < 0:
+                    continue
+                d = 0 if kf == kf1 else 1
+                fi = m.mp_obs_idx[mp, s]
+                obs_cam[j, d] = d
+                obs_uv[j, d] = m.kf_feat_xy[kf, fi]
+                obs_level[j, d] = m.kf_feat_level[kf, fi]
+                obs_valid[j, d] = True
+        return convert.ba_problem_from_numpy(dict(
+            cam_R=np.stack([m.kf_R[kf1], m.kf_R[kf2]]),
+            cam_t=np.stack([m.kf_t[kf1], m.kf_t[kf2]]),
+            cam_fixed=np.array([True, False]),
+            p=m.mp_pos[ids], p_valid=np.ones((P,), bool),
+            obs_cam=obs_cam, obs_uv=obs_uv, obs_ur=np.full((P, D), -1.0, np.float32),
+            obs_level=obs_level, obs_valid=obs_valid,
+        ), device=self.device)
+
+    # ------------------------------------------------------------- main track
+    def _local_points_view(self) -> tuple[programs.LocalPoints, np.ndarray]:
+        """Candidate map points: those seen by the reference KF's
+        covisibility neighbourhood and its 3 temporal predecessors
+        (UpdateLocalKeyFrames/Points, Tracking.cc:4250,4206), padded to the
+        static cap. The view depends only on (map version, reference KF),
+        so frames between keyframes reuse the uploaded tensors."""
+        m = self.map
+        cap = self.cfg.local_points_cap
+        key = (m.version, self.last_kf, cap)
+        if self._lp_cache is not None and self._lp_cache[0] == key:
+            return self._lp_cache[1], self._lp_cache[2]
+        kfs = [self.last_kf] + m.covisible_kfs(self.last_kf, k=10, min_weight=5)
+        k = self.last_kf
+        for _ in range(3):
+            k = m.kf_prev[k] if k >= 0 else -1
+            if k >= 0:
+                kfs.append(int(k))
+        ids = m.local_point_ids(np.unique(kfs), cap)
+        lp = convert.local_points_from_map(m, ids, cap, self.device)
+        self._lp_cache = (key, lp, ids)
+        return lp, ids
+
+    def _predict_pose(self) -> tuple[np.ndarray, np.ndarray]:
+        if self.velocity is not None:
+            T = self.velocity @ self._current_pose()
+            return T[:3, :3].copy(), T[:3, 3].copy()
+        return self.last_R.copy(), self.last_t.copy()
+
+    def _track_frame(self, feats: Features, timestamp: float) -> bool:
+        cfg = self.cfg
+        if self._precomputed is not None and self.state == OK:
+            res = self._precomputed[0]
+            lp, ids, R0, t0 = self._prepared
+            self._precomputed = None
+        else:
+            R0, t0 = self._predict_pose()
+            lp, ids = self._local_points_view()
+            res = programs.track_against_points(
+                self.cam, feats, lp, self._tensor(R0), self._tensor(t0),
+                th=self._search_th(), n_levels=cfg.n_levels, scale=cfg.scale_factor,
+            )
+        res = _fetch_track(res)
+        n_inl = res.n_inliers
+        if n_inl < cfg.min_track_matches:
+            # TrackReferenceKeyFrame fallback (Tracking.cc:3254): BoW-node
+            # matching against the reference KF + pose LM, then a wide
+            # local-map re-track from the recovered pose
+            if not self._track_reference_kf(feats):
+                return False
+            lp, ids = self._local_points_view()
+            res = _fetch_track(programs.track_against_points(
+                self.cam, feats, lp, self._tensor(self.last_R), self._tensor(self.last_t),
+                th=3.0, n_levels=cfg.n_levels, scale=cfg.scale_factor,
+            ))
+            n_inl = res.n_inliers
+            if n_inl < cfg.min_track_matches:
+                return False
+
+        prev_pose = self._current_pose()
+        self.last_R = res.R
+        self.last_t = res.t
+        # constant-velocity model: Tcl = Tcw_new @ inv(Tcw_prev)
+        self.velocity = self._current_pose() @ np.linalg.inv(prev_pose)
+
+        # found/visible stats (MapPoint::IncreaseFound/Visible)
+        m = self.map
+        m.mp_visible[ids[res.visible[: len(ids)]]] += 1
+        m.mp_found[ids[res.inlier[: len(ids)]]] += 1
+
+        self.frames_since_kf += 1
+        ok_state = n_inl >= (cfg.min_local_inliers if self.state == OK else cfg.min_track_matches)
+        # only frames that pass the OK gate may insert a keyframe
+        # (`bNeedKF && bOK`, Tracking.cc:2644-2658)
+        if not self.localization_only and ok_state and self._need_new_kf(n_inl):
+            self._create_new_kf(feats, timestamp, res, ids)
+        return ok_state
+
+    def _bow_match(self, feats: Features, node: np.ndarray, kf: int, ratio: float):
+        """SearchByBoW (ORBmatcher.cc:262): the frame's features (BoW nodes
+        `node`) against keyframe kf's features that carry map points, inside
+        shared nodes, TH_LOW + ratio + rotation histogram. Returns (X, point
+        valid): per frame feature, the matched map point's position and
+        whether it is a match, as device tensors; or None with fewer than
+        15 candidates or matches."""
+        m = self.map
+        kf_node = self.kfdb.kf_node.get(kf)
+        if kf_node is None:
+            return None
+        valid = node >= 0
+        mask = ((node[:, None] == kf_node[None, :]) & valid[:, None]
+                & (m.kf_feat_mp[kf] >= 0)[None, :])
+        if mask.sum() < 15:
+            return None
+        idx, _, ok = matching.search_by_window(
+            feats.desc, convert.desc_tensor(m.kf_feat_desc[kf], self.device),
+            self._tensor(mask), th=matching.TH_LOW, ratio=ratio,
+        )
+        ok = matching.rotation_consistency(feats.angle, self._tensor(m.kf_feat_angle[kf]), idx, ok)
+        idx_np, ok_np = idx.cpu().numpy(), ok.cpu().numpy()
+        if ok_np.sum() < 15:
+            return None
+        mp = m.kf_feat_mp[kf, idx_np]
+        pv = ok_np & (mp >= 0) & m.mp_valid[np.maximum(mp, 0)]
+        return self._tensor(m.mp_pos[np.maximum(mp, 0)]), self._tensor(pv)
+
+    def _track_reference_kf(self, feats: Features) -> bool:
+        """TrackReferenceKeyFrame (Tracking.cc:3254): BoW-node matching
+        against the reference KF (ratio 0.7), then the pose LM from the last
+        pose. True, with last_R/t updated, on >= 10 inliers."""
+        kf = self.last_kf
+        if kf < 0 or self.kfdb is None or not self.map.kf_valid[kf]:
+            return False
+        _, node = self.kfdb.voc.transform_on_device(feats.desc, feats.valid)
+        found = self._bow_match(feats, node, kf, ratio=0.7)
+        if found is None:
+            return False
+        X, pv = found
+        obs = pose_opt.PoseObs(p_world=X, uv=feats.xy, u_right=feats.u_right,
+                               level=feats.level, valid=pv)
+        R, t, _, n = pose_opt.optimize_pose(self.cam, self._tensor(self.last_R),
+                                            self._tensor(self.last_t), obs)
+        if int(n) < 10:
+            return False
+        self.last_R = R.cpu().numpy()
+        self.last_t = t.cpu().numpy()
+        return True
+
+    def _need_new_kf(self, n_inl: int) -> bool:
+        """NeedNewKeyFrame (Tracking.cc:3726-3924), monocular visual
+        conditions: c1a (max frames) or c1b (min frames, mapper idle — the
+        mapper runs inline, so always idle), and c2 (tracked ratio against
+        the reference KF's well-observed points)."""
+        cfg = self.cfg
+        m = self.map
+        nkfs = len(m.kf_ids())
+        # don't insert right after a relocalization (Tracking.cc:3742)
+        if (self.frame_id < self.last_reloc_frame + cfg.max_frames_between_kf
+                and nkfs > cfg.max_frames_between_kf):
+            return False
+        mids = m.kf_feat_mp[self.last_kf]
+        mids = mids[mids >= 0]
+        ref_matches = int((m.mp_n_obs[mids] >= (3 if nkfs > 2 else 2)).sum())
+        th_ref = cfg.kf_ref_ratio if nkfs >= 2 else 0.4
+        c1a = self.frames_since_kf >= cfg.max_frames_between_kf
+        c1b = self.frames_since_kf >= cfg.min_frames_between_kf
+        c2 = n_inl < ref_matches * th_ref and n_inl > 15
+        return (c1a or c1b) and c2
+
+    def _create_new_kf(self, feats, timestamp, res, ids):
+        m = self.map
+        kf = m.add_keyframe(self.last_R, self.last_t, _np_feats(feats), timestamp,
+                            parent=self.last_kf, prev=self.last_kf)
+        # associate the tracked points with this KF's features
+        match_feat = res.match_feat[: len(ids)]
+        j = np.nonzero(res.inlier[: len(ids)] & (match_feat >= 0))[0]
+        m.add_observations(np.asarray(ids)[j], kf, match_feat[j])
+        self._register_kf(kf)
+        self.last_kf = kf
+        self.frames_since_kf = 0
+        self.pending_kf = kf
+
+    def _relocalize(self, feats: Features) -> bool:
+        """BoW candidates -> BoW-guided matching -> batched PnP RANSAC ->
+        guided growth through the candidate's local map; success with >= 20
+        inliers (Relocalization, Tracking.cc:4444-4666)."""
+        m = self.map
+        word, node = self.kfdb.voc.transform_on_device(feats.desc, feats.valid)
+        cands = self.kfdb.detect_relocalization_candidates(self.kfdb.voc.bow_vector(word), m)
+        for kf in cands:
+            if not m.kf_valid[kf]:
+                continue
+            found = self._bow_match(feats, node, kf, ratio=0.75)
+            if found is None:
+                continue
+            X, pv = found
+            R, t, _, n_inl = pnp.pnp_ransac(self.cam, X, feats.xy, pv,
+                                            _seed(self.generator, self._rng))
+            n_inl = int(n_inl)
+            if n_inl < 10:
+                continue
+            # guided growth (Tracking.cc:4560-4640): project the candidate's
+            # local map through the PnP pose with a wide window
+            lp, _ = self._candidate_local_view(kf)
+            res = programs.track_against_points(
+                self.cam, feats, lp, R, t, th=2.5,
+                n_levels=self.cfg.n_levels, scale=self.cfg.scale_factor,
+            )
+            if int(res.n_inliers) >= max(20, n_inl):
+                R, t, n_inl = res.R, res.t, int(res.n_inliers)
+            if n_inl >= 20:
+                self.last_R = R.cpu().numpy()
+                self.last_t = t.cpu().numpy()
+                self.velocity = None
+                self.last_kf = kf
+                # relocalized into another sub-map: make it the active map
+                target_map = int(m.kf_map_id[kf])
+                if target_map != m.active_map:
+                    m.active_map = target_map
+                    m.version += 1
+                return True
+        return False
+
+    def _candidate_local_view(self, kf: int):
+        """LocalPoints view around a relocalization candidate keyframe."""
+        m = self.map
+        cap = self.cfg.local_points_cap
+        ids = m.local_point_ids(np.unique([kf] + m.covisible_kfs(kf, k=10, min_weight=5)), cap)
+        return convert.local_points_from_map(m, ids, cap, self.device), ids
+
+    def _handle_lost(self):
+        """Recovery ladder tail (Tracking.cc:2299-2322): a young map (< 10
+        KFs) is reset; an established one is kept and a fresh sub-map
+        started."""
+        m = self.map
+        if len(m.kf_ids(m.active_map)) < 10:
+            for mp in m.mp_ids(m.active_map):
+                m.remove_point(int(mp))
+            for kf in m.kf_ids(m.active_map):
+                m.kf_valid[kf] = False
+                if self.kfdb is not None:
+                    self.kfdb.erase(int(kf))
+        else:
+            m.create_new_map()
+        self.state = NOT_INITIALIZED
+        self._init_feats = None
+        self.velocity = None
+        self.last_kf = -1

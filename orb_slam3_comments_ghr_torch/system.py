@@ -1,0 +1,228 @@
+"""Public SLAM system facade, monocular visual path.
+
+Port of `orb_slam3_comments_ghr_tpu/system.py` (ORB_SLAM3::System,
+reference include/System.h:104-195): construct with a camera + config, feed
+frames with `track_monocular` (or features with `track_features`), query
+the state, export trajectories. Tracking runs inline per frame and local
+mapping inline per keyframe.
+
+The system runs on one device: the card (`torch.device("cuda")`) unless the
+caller passes `device="cpu"`. The per-frame and per-keyframe programs run
+there; the map stays host numpy. Not ported yet, and refused with
+NotImplementedError: loop closing (ROADMAP A6), asynchronous mapping,
+inertial (A5), stereo and RGB-D (A4), fisheye (A7) and atlas files.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .map.state import MapConfig, MapState
+from .ops import cameras, lie
+from .pipeline import programs
+from .pipeline.mapper import LocalMapper
+from .pipeline.tracker import NOT_INITIALIZED, STATE_NAMES, Tracker
+from .retrieval.database import KeyFrameDatabase
+from .retrieval.vocabulary import Vocabulary
+from .utils.config import MONOCULAR, SlamConfig
+from .utils.device import resolve_device
+
+
+def _check_supported(cam: cameras.Camera, cfg: SlamConfig):
+    if cfg.enable_loop_closing:
+        raise NotImplementedError(
+            "loop closing is not ported yet (ROADMAP A6): set enable_loop_closing=False")
+    if cfg.async_mapping:
+        raise NotImplementedError("asynchronous mapping is not ported yet: set async_mapping=False")
+    if cfg.is_inertial:
+        raise NotImplementedError("inertial sensors are not ported yet (ROADMAP A5)")
+    if cfg.sensor != MONOCULAR:
+        raise NotImplementedError("stereo and RGB-D are not ported yet (ROADMAP A4)")
+    if cam.kind != cameras.PINHOLE:
+        raise NotImplementedError("the fisheye camera model is not ported yet (ROADMAP A7)")
+
+
+class SLAM:
+    def __init__(self, cam: cameras.Camera, cfg: Optional[SlamConfig] = None, device=None):
+        self.cfg = cfg or SlamConfig()
+        _check_supported(cam, self.cfg)
+        self.device = resolve_device(device)
+        self.cam = cam
+        self.geom_cam = cameras.pinhole_equivalent(cam)
+        self.map = MapState(MapConfig(
+            max_kf=self.cfg.max_kf, max_mp=self.cfg.max_mp, n_feat=self.cfg.n_features,
+            obs_cap=self.cfg.obs_cap, scale_factor=self.cfg.scale_factor,
+            n_levels=self.cfg.n_levels,
+        ))
+        voc_path = self.cfg.voc_path or os.path.join(
+            os.path.dirname(__file__), "retrieval", "default_voc.npz")
+        self.voc = (Vocabulary.load(voc_path, device=self.device) if os.path.exists(voc_path)
+                    else Vocabulary.random(device=self.device))
+        self.kfdb = KeyFrameDatabase(self.voc, self.cfg.max_kf)
+        self.tracker = Tracker(self.geom_cam, self.cfg, self.map, kfdb=self.kfdb,
+                               device=self.device)
+        self.mapper = LocalMapper(self.geom_cam, self.cfg, self.map, kfdb=self.kfdb,
+                                  device=self.device)
+        self._empty_lp = None
+
+    # --------------------------------------------------------------- per-frame
+    def _dummy_local_points(self) -> programs.LocalPoints:
+        """Empty local-point view, so init / relocalization frames run the
+        same fused program (its track half then finds nothing)."""
+        if self._empty_lp is None:
+            L = self.cfg.local_points_cap
+            z = dict(device=self.device)
+            self._empty_lp = programs.LocalPoints(
+                pos=torch.zeros((L, 3), **z), desc=torch.zeros((L, 8), dtype=torch.int32, **z),
+                normal=torch.zeros((L, 3), **z), min_dist=torch.ones((L,), **z),
+                max_dist=torch.ones((L,), **z), valid=torch.zeros((L,), dtype=torch.bool, **z),
+                angle=torch.zeros((L,), **z),
+            )
+        return self._empty_lp
+
+    def track_monocular(self, img, timestamp: float, imu_samples=None) -> Optional[np.ndarray]:
+        """img: (H,W) grayscale array or tensor (uint8 or float). Returns
+        4x4 Tcw or None (System::TrackMonocular, System.h:120)."""
+        if imu_samples is not None:
+            raise NotImplementedError("inertial sensors are not ported yet (ROADMAP A5)")
+        img = (img if torch.is_tensor(img) else torch.from_numpy(np.asarray(img))).to(self.device)
+        ready, lp, _, R0, t0 = self.tracker.prepare_frame(timestamp)
+        if not ready:
+            lp = self._dummy_local_points()
+            R0 = torch.eye(3, device=self.device)
+            t0 = torch.zeros(3, device=self.device)
+        feats, res = programs.extract_and_track(
+            self.cam, self.geom_cam, img, lp, R0, t0,
+            n_features=self.cfg.n_features, n_levels=self.cfg.n_levels,
+            scale=self.cfg.scale_factor, ini_th=self.cfg.ini_th_fast,
+            min_th=self.cfg.min_th_fast, th=self.tracker._prepared_th if ready else 1.0,
+        )
+        return self.track_features(feats, timestamp, precomputed=(res,) if ready else None)
+
+    def track_features(self, feats, timestamp: float, precomputed=None):
+        """Entry point for features produced elsewhere (tests, other front
+        ends): a Features tuple of tensors on the system's device."""
+        pose = self.tracker.track(feats, timestamp, precomputed=precomputed)
+        kf = self.tracker.pending_kf
+        if kf is not None and self.n_keyframes() >= 2:
+            self.mapper.process_keyframe(kf)
+        return pose
+
+    # --------------------------------------------------------------- queries
+    @property
+    def state(self) -> str:
+        return STATE_NAMES[self.tracker.state]
+
+    def n_keyframes(self) -> int:
+        return len(self.map.kf_ids())
+
+    def n_map_points(self) -> int:
+        return len(self.map.mp_ids())
+
+    # ------------------------------------------------------------ mode/reset
+    def activate_localization_mode(self):
+        """Tracking-only: no new keyframes/map growth (System.h:123)."""
+        self.tracker.localization_only = True
+
+    def deactivate_localization_mode(self):
+        self.tracker.localization_only = False
+
+    def reset(self):
+        """Full reset: drop all maps and state (System::Reset)."""
+        self.map = MapState(self.map.cfg)
+        self.tracker.map = self.map
+        self.mapper.map = self.map
+        self.tracker.state = 0
+        self.tracker.last_kf = -1
+        self.tracker._init_feats = None
+        self.tracker.records.clear()
+        self.mapper.recent_mps.clear()
+
+    def reset_active_map(self):
+        """Drop only the active sub-map (System::ResetActiveMap)."""
+        m = self.map
+        for mp in m.mp_ids(m.active_map):
+            m.remove_point(int(mp))
+        for kf in m.kf_ids(m.active_map):
+            m.kf_valid[kf] = False
+            self.kfdb.erase(int(kf))
+        self.mapper.recent_mps.clear()
+        self.tracker.state = NOT_INITIALIZED
+        self.tracker.last_kf = -1
+        self.tracker._init_feats = None
+        self.tracker.velocity = None
+
+    def save_atlas(self, path: str):
+        raise NotImplementedError("atlas files are not ported yet (map/persistence.py)")
+
+    def load_atlas(self, path: str, new_session: bool = True):
+        raise NotImplementedError("atlas files are not ported yet (map/persistence.py)")
+
+    # --------------------------------------------------------------- export
+    def trajectory(self) -> list[tuple[float, np.ndarray]]:
+        """Full-frame trajectory rebuilt against the (BA-refined) reference
+        KFs (SaveTrajectoryTUM pattern, System.cc:635): Tcw = Tcr @ Trw(ref),
+        walking culled KFs through their frozen Tcp to a live ancestor
+        (System.cc:760-847)."""
+        out = []
+        m = self.map
+        for rec in self.tracker.records:
+            if rec.lost or rec.ref_kf < 0:
+                continue
+            ref = rec.ref_kf
+            T_chain = np.eye(4, dtype=np.float32)
+            while ref >= 0 and not m.kf_valid[ref]:
+                T_chain = T_chain @ m.kf_Tcp[ref]
+                ref = int(m.kf_parent[ref])
+            if ref < 0:
+                continue
+            T_rw = np.eye(4, dtype=np.float32)
+            T_rw[:3, :3] = m.kf_R[ref]
+            T_rw[:3, 3] = m.kf_t[ref]
+            out.append((rec.timestamp, rec.T_cr @ T_chain @ T_rw))
+        return out
+
+    @staticmethod
+    def _quat(R_wc: np.ndarray) -> np.ndarray:
+        return lie.mat_to_quat(torch.from_numpy(np.asarray(R_wc, np.float32))).numpy()
+
+    def save_keyframe_trajectory_tum(self, path: str):
+        """Keyframe-only trajectory (System::SaveKeyFrameTrajectoryTUM)."""
+        with open(path, "w") as f:
+            for kf in self.map.kf_ids():
+                R_wc = self.map.kf_R[kf].T
+                t = -R_wc @ self.map.kf_t[kf]
+                q = self._quat(R_wc)
+                f.write(f"{self.map.kf_time[kf]:.6f} {t[0]:.7f} {t[1]:.7f} {t[2]:.7f} "
+                        f"{q[1]:.7f} {q[2]:.7f} {q[3]:.7f} {q[0]:.7f}\n")
+
+    def save_trajectory_euroc(self, path: str):
+        """EuRoC format: TUM fields with nanosecond timestamps
+        (System::SaveTrajectoryEuRoC, System.cc:730)."""
+        with open(path, "w") as f:
+            for ts, T_cw in self.trajectory():
+                T_wc = np.linalg.inv(T_cw)
+                q, t = self._quat(T_wc[:3, :3]), T_wc[:3, 3]
+                f.write(f"{int(ts * 1e9)} {t[0]:.7f} {t[1]:.7f} {t[2]:.7f} "
+                        f"{q[1]:.7f} {q[2]:.7f} {q[3]:.7f} {q[0]:.7f}\n")
+
+    def save_trajectory_kitti(self, path: str):
+        """KITTI format: 3x4 row-major T_wc per line
+        (System::SaveTrajectoryKITTI, System.cc:1275)."""
+        with open(path, "w") as f:
+            for _, T_cw in self.trajectory():
+                f.write(" ".join(f"{v:.7e}" for v in np.linalg.inv(T_cw)[:3, :4].reshape(-1)) + "\n")
+
+    def save_trajectory_tum(self, path: str):
+        """TUM format: `t x y z qx qy qz qw` of the camera in world
+        (System::SaveTrajectoryTUM, System.cc:635)."""
+        with open(path, "w") as f:
+            for ts, T_cw in self.trajectory():
+                T_wc = np.linalg.inv(T_cw)
+                q, t = self._quat(T_wc[:3, :3]), T_wc[:3, 3]
+                f.write(f"{ts:.6f} {t[0]:.7f} {t[1]:.7f} {t[2]:.7f} "
+                        f"{q[1]:.7f} {q[2]:.7f} {q[3]:.7f} {q[0]:.7f}\n")

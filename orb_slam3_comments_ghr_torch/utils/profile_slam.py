@@ -1,0 +1,124 @@
+"""Where the time of monocular SLAM goes on a CUDA card.
+
+    python -m orb_slam3_comments_ghr_torch.utils.profile_slam [--frames 120] [--warmup 10]
+
+Drives `SLAM.track_monocular` over the `chip_smoke.py` phase-4 sequence
+(`make_textured_scene(7)`, `circular_trajectory(300)`, 20 Hz, default
+full-width config, loop closing off); every frame after the first
+`--warmup` (which cover initialization) runs under `torch.profiler`. For
+the per-frame program (`programs.extract_and_track`), the tracker's host
+bookkeeping after it (`Tracker.track`: result fetch, map statistics,
+keyframe insertion) and the five stages of `LocalMapper.process_keyframe`
+it prints the calls, the host milliseconds (each call ending in a device
+sync; inflated by the profiler's host cost) and the device milliseconds of
+the kernels and copies each launched. Then, for the whole profiled run:
+device busy time (one stream, so kernels do not overlap), kernel and copy
+count, the device idle share (1 - busy / wall, the wall inflated by the
+profiler), the window-match kernel's launches and device time, and the
+kernels with the most device time.
+
+It needs a CUDA card and exits non-zero without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import sys
+import time
+
+import numpy as np
+import torch
+
+MAPPER_STAGES = ("cull_map_points", "create_new_points", "fuse_neighbors", "local_ba", "cull_keyframes")
+
+
+def _timed(obj, name: str, times: dict, key: str):
+    """Wrap obj.name in a profiler range named `key`, and append each
+    call's host ms (ending in a sync) to times[key]."""
+    fn = getattr(obj, name)
+
+    def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        with torch.profiler.record_function(key):
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+        times[key].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    setattr(obj, name, wrapper)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--frames", type=int, default=120)
+    ap.add_argument("--warmup", type=int, default=10, help="frames run before profiling")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_slam needs a CUDA card")
+    from ..ops import cameras
+    from ..pipeline import programs
+    from ..system import SLAM
+    from . import synthetic
+    from .config import SlamConfig
+
+    cam = cameras.euroc_cam0()
+    scene = synthetic.make_textured_scene(7)
+    poses = synthetic.circular_trajectory(300)
+    frames = [np.clip(np.round(synthetic.render_image(scene, cam, *poses[i])), 0, 255).astype(np.uint8)
+              for i in range(args.frames)]
+    slam = SLAM(cam, SlamConfig(enable_loop_closing=False), device="cuda")
+    times = collections.defaultdict(list)
+    _timed(programs, "extract_and_track", times, "extract_and_track")
+    _timed(slam.tracker, "track", times, "tracker.track (host bookkeeping)")
+    for stage in MAPPER_STAGES:
+        _timed(slam.mapper, stage, times, f"mapper.{stage}")
+
+    for i in range(args.warmup):
+        slam.track_monocular(frames[i], i * 0.05)
+    torch.cuda.synchronize()
+    for v in times.values():
+        v.clear()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=activities) as prof:
+        for i in range(args.warmup, args.frames):
+            slam.track_monocular(frames[i], i * 0.05)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+
+    events = prof.events()
+    device_ms = collections.Counter()
+    for e in events:
+        if e.name in times and e.device_type == torch.autograd.DeviceType.CPU:
+            device_ms[e.name] += e.device_time_total / 1e3
+    print(torch.cuda.get_device_name(0))
+    print(f"frames {args.warmup}-{args.frames - 1} profiled; keyframes {slam.n_keyframes()}, "
+          f"map points {slam.n_map_points()}")
+    for key, v in times.items():
+        if not v:
+            print(f"{key}: calls 0")
+            continue
+        print(f"{key}: calls {len(v)}, host median {np.median(v):.3f} ms, p75 "
+              f"{np.percentile(v, 75):.3f} ms, total {np.sum(v):.1f} ms; device total "
+              f"{device_ms[key]:.3f} ms")
+    # kernels and copies on the card (one stream: they do not overlap); the
+    # ranges above also leave a device-side annotation span, left out here
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.name not in times]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    print(f"profiled run: wall {wall_ms:.1f} ms, device busy {busy_ms:.3f} ms, kernels and "
+          f"copies {len(kernels)}, device idle share {1 - busy_ms / wall_ms:.3f}")
+    wm = [e.time_range.elapsed_us() for e in kernels if "window_match" in e.name]
+    print(f"window_match kernel: launches {len(wm)}, device total {sum(wm) / 1e3:.3f} ms, "
+          f"median {np.median(wm) if wm else 0.0:.2f} us per launch")
+    by_name = collections.Counter()
+    for e in kernels:
+        by_name[e.name] += e.time_range.elapsed_us()
+    for name, us in by_name.most_common(8):
+        print(f"  {us / 1e3:9.3f} ms  {name[:100]}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -174,3 +174,83 @@ def local_points_from_keyframes(cam, feats_list, poses, depth_maps, cap: int,
         valid=torch.arange(cap, device=feats_list[0].xy.device) < n,
         angle=padded(angle, np.float32),
     )
+
+
+@dataclasses.dataclass
+class World:
+    points: np.ndarray       # (W,3)
+    desc: np.ndarray         # (W,8) uint32 per-landmark descriptor
+    patches: np.ndarray      # (W,21,21) float32 texture patch
+    priority: np.ndarray     # (W,) detection priority: a real detector
+                             # re-finds the same strong corners every frame
+
+
+def make_world(seed: int, n_points: int = 4000, extent=(20.0, 12.0, 8.0),
+               center=(0.0, 0.0, 10.0)) -> World:
+    """Random landmarks in a box, with descriptors, patches and detection
+    priorities (the JAX package's `make_world`, same draws)."""
+    rng = np.random.default_rng(seed)
+    pts = (rng.random((n_points, 3)) - 0.5) * np.asarray(extent) + np.asarray(center)
+    desc = rng.integers(0, 2**32, (n_points, 8), dtype=np.uint32)
+    patches = rng.random((n_points, 21, 21)).astype(np.float32) * 200.0 + 30.0
+    priority = rng.random(n_points).astype(np.float32)
+    return World(points=pts.astype(np.float32), desc=desc, patches=patches, priority=priority)
+
+
+def render_features(world: World, cam, R_cw: np.ndarray, t_cw: np.ndarray, n_feat: int = 1024,
+                    noise_px: float = 0.4, desc_flip_bits: int = 6, seed: int = 0,
+                    device="cuda"):
+    """Project the landmarks into the view and emit Features (on `device`)
+    with per-landmark descriptors, a few bits flipped per observation: the
+    ideal front end. Returns (features, landmark ids). The same draws and
+    arithmetic as the JAX package's `render_features` (monocular)."""
+    from ..frontend.types import Features
+
+    rng = np.random.default_rng(seed)
+    pc = world.points @ R_cw.T + t_cw
+    z = pc[:, 2]
+    # the pinhole projection in float32, as the JAX package computes it
+    pc32 = pc.astype(np.float32)
+    inv_z = np.float32(1.0) / np.where(np.abs(pc32[:, 2]) < 1e-9, np.float32(1e-9), pc32[:, 2])
+    uv = np.stack([np.float32(cam.fx) * pc32[:, 0] * inv_z + np.float32(cam.cx),
+                   np.float32(cam.fy) * pc32[:, 1] * inv_z + np.float32(cam.cy)], -1)
+    margin = 10.0
+    vis = ((z > 0.3) & (uv[:, 0] >= margin) & (uv[:, 0] < cam.width - margin)
+           & (uv[:, 1] >= margin) & (uv[:, 1] < cam.height - margin))
+    ids = np.nonzero(vis)[0]
+    # strongest first, with a small per-frame dropout (detection flicker)
+    ids = ids[rng.random(len(ids)) > 0.05]
+    ids = ids[np.argsort(-world.priority[ids])][:n_feat]
+    n = len(ids)
+
+    xy = np.zeros((n_feat, 2), np.float32)
+    desc = np.zeros((n_feat, 8), np.uint32)
+    level = np.zeros((n_feat,), np.int32)
+    xy[:n] = uv[ids] + rng.normal(0, noise_px, (n, 2))
+    desc[:n] = world.desc[ids]
+    for _ in range(desc_flip_bits):
+        word = rng.integers(0, 8, n)
+        bit = rng.integers(0, 32, n).astype(np.uint32)
+        desc[np.arange(n), word] ^= (np.uint32(1) << bit)
+    level[:n] = (rng.random(n) < 0.15).astype(np.int32)
+    valid = np.zeros((n_feat,), bool)
+    valid[:n] = True
+    t = lambda a: torch.from_numpy(a).to(device)
+    return Features(
+        xy=t(xy), level=t(level), angle=t(np.zeros((n_feat,), np.float32)),
+        response=t(np.where(valid, np.float32(1.0), np.float32(-np.inf))),
+        desc=t(desc.view(np.int32)), valid=t(valid),
+        u_right=t(np.full((n_feat,), -1.0, np.float32)),
+        depth=t(np.full((n_feat,), -1.0, np.float32)),
+    ), ids
+
+
+def gt_trajectory(poses) -> list:
+    """(timestamp, 4x4 Tcw) per pose, at 20 Hz."""
+    out = []
+    for i, (R, t) in enumerate(poses):
+        T = np.eye(4, dtype=np.float32)
+        T[:3, :3] = R
+        T[:3, 3] = t
+        out.append((i * 0.05, T))
+    return out

@@ -123,7 +123,7 @@ def test_extract_rejects_bad_images():
 
 
 def test_empty_features():
-    t = ttypes.empty_features(16)
+    t = ttypes.empty_features(16, device="cpu")
     j = jtypes.empty_features(16)
     for k, v in convert.to_numpy(t).items():
         ref = np.asarray(getattr(j, k))

@@ -49,8 +49,8 @@ def test_track_against_points_synthetic_features():
     cam, feats, lp, R0, t0 = _synth_track_inputs(512, 1024)
     j_res = jprograms.track_against_points(cam, feats, lp, R0, t0)
     t_res = tprograms.track_against_points(
-        convert.camera_from_jax(cam), convert.features_from_numpy(_jax_numpy(feats)),
-        convert.local_points_from_numpy(_jax_numpy(lp)),
+        convert.camera_from_jax(cam), convert.features_from_numpy(_jax_numpy(feats), device="cpu"),
+        convert.local_points_from_numpy(_jax_numpy(lp), device="cpu"),
         torch.tensor(np.asarray(R0)), torch.tensor(np.asarray(t0)))
     _compare(t_res, j_res)
     assert int(t_res.n_inliers) > 300
@@ -61,7 +61,7 @@ def test_frustum_gate_matches_jax():
     j = jprograms._frustum_gate(cam, R0, t0, lp, 8, 1.2)
     t = tprograms._frustum_gate(
         convert.camera_from_jax(cam), torch.tensor(np.asarray(R0)),
-        torch.tensor(np.asarray(t0)), convert.local_points_from_numpy(_jax_numpy(lp)), 8, 1.2)
+        torch.tensor(np.asarray(t0)), convert.local_points_from_numpy(_jax_numpy(lp), device="cpu"), 8, 1.2)
     np.testing.assert_array_equal(t[0].numpy(), np.asarray(j[0]))
     vis = np.asarray(j[0])
     np.testing.assert_allclose(t[1].numpy()[vis], np.asarray(j[1])[vis], rtol=1e-5)

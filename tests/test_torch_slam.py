@@ -1,0 +1,250 @@
+"""Monocular SLAM end to end through the port, on the CPU: the twin of
+`tests/test_e2e_mono.py` (40 frames of rendered synthetic features through
+`SLAM.track_features`, loop closing off), held against the JAX package on
+the same frames; relocalization and the reference-keyframe fallback on the
+same map in both packages; exports, modes and the device rules.
+
+Bounds: the two packages draw their RANSAC sets from different generators
+and sum in another order, so the runs are compared by outcome: both track
+every frame after init, ATE < 5 cm, keyframe counts within 2, map points
+within 20 %. On one shared map, relocalization picks the same keyframe and
+lands within 1 cm / 0.5 degree of the JAX pose."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from orb_slam3_comments_ghr_tpu import system as jsystem
+from orb_slam3_comments_ghr_tpu.map import state as jstate
+from orb_slam3_comments_ghr_tpu.ops import cameras as jcameras
+from orb_slam3_comments_ghr_tpu.pipeline import tracker as jtracker
+from orb_slam3_comments_ghr_tpu.retrieval import database as jdatabase, vocabulary as jvocabulary
+from orb_slam3_comments_ghr_tpu.utils import config as jconfig, synthetic as jsynthetic
+from orb_slam3_comments_ghr_torch import convert, system as tsystem
+from orb_slam3_comments_ghr_torch.ops import cameras as tcameras
+from orb_slam3_comments_ghr_torch.map import state as tstate
+from orb_slam3_comments_ghr_torch.pipeline import mapper as tmapper, tracker as ttracker
+from orb_slam3_comments_ghr_torch.retrieval import database as tdatabase, vocabulary as tvocabulary
+from orb_slam3_comments_ghr_torch.utils import config as tconfig, evaluation, synthetic as tsynthetic
+
+torch.set_num_threads(1)
+
+JCAM = jcameras.euroc_cam0()
+TCAM = tcameras.euroc_cam0()
+TVOC = tsystem.os.path.join(tsystem.os.path.dirname(tsystem.__file__), "retrieval", "default_voc.npz")
+CFG = dict(n_features=512, local_points_cap=2048, local_ba_points=2048,
+           max_frames_between_kf=8, min_init_matches=60, enable_loop_closing=False)
+
+
+def run(pkg, n_frames=40, seed=3):
+    """(slam, per-frame estimates, ground truth) of one package."""
+    world = jsynthetic.make_world(seed, n_points=3000)
+    poses = jsynthetic.circular_trajectory(n_frames)
+    if pkg == "torch":
+        slam = tsystem.SLAM(TCAM, tconfig.SlamConfig(**CFG), device="cpu")
+    else:
+        slam = jsystem.SLAM(JCAM, jconfig.SlamConfig(**CFG))
+    est = []
+    for i, (R, t) in enumerate(poses):
+        if pkg == "torch":
+            feats, _ = tsynthetic.render_features(
+                tsynthetic.World(**dataclasses.asdict(world)), TCAM, R, t, n_feat=512,
+                seed=seed * 1000 + i, device="cpu")
+        else:
+            feats, _ = jsynthetic.render_features(world, JCAM, R, t, n_feat=512, seed=seed * 1000 + i)
+        pose = slam.track_features(feats, i * 0.05)
+        if pose is not None:
+            est.append((i * 0.05, pose))
+    return slam, est, jsynthetic.gt_trajectory(poses)
+
+
+@pytest.fixture(scope="module")
+def seq():
+    return run("torch")
+
+
+@pytest.fixture(scope="module")
+def jax_seq():
+    return run("jax")
+
+
+def test_initializes_and_tracks(seq):
+    slam, est, _ = seq
+    assert slam.state == "OK"
+    assert len(est) > 30
+
+
+def test_builds_map(seq):
+    slam, _, _ = seq
+    assert slam.n_keyframes() >= 3
+    assert slam.n_map_points() > 200
+
+
+def test_ate_under_threshold(seq):
+    _, est, gt = seq
+    rmse = evaluation.ate_rmse(est, gt, with_scale=True)
+    assert rmse < 0.05, f"ATE {rmse:.4f} m"
+    slam = seq[0]
+    assert evaluation.ate_rmse(slam.trajectory(), gt, with_scale=True) < 0.05
+
+
+def test_same_outcome_as_jax(seq, jax_seq):
+    (ts, test, gt), (js, jest, _) = seq, jax_seq
+    assert len(test) == len(jest)
+    assert abs(ts.n_keyframes() - js.n_keyframes()) <= 2
+    assert abs(ts.n_map_points() - js.n_map_points()) <= 0.2 * js.n_map_points()
+    assert evaluation.ate_rmse(jest, gt) < 0.05
+
+
+def test_trajectory_exports(seq, tmp_path):
+    slam, _, _ = seq
+    slam.save_trajectory_tum(str(tmp_path / "tum.txt"))
+    lines = (tmp_path / "tum.txt").read_text().strip().splitlines()
+    assert len(lines) > 30 and len(lines[0].split()) == 8
+    q = np.array([float(x) for x in lines[5].split()[4:]])
+    assert abs(np.linalg.norm(q) - 1.0) < 1e-5
+    slam.save_trajectory_euroc(str(tmp_path / "euroc.txt"))
+    first = (tmp_path / "euroc.txt").read_text().split()
+    assert first[0].isdigit() and np.allclose([float(x) for x in first[1:4]], [float(x) for x in lines[0].split()[1:4]])
+    slam.save_trajectory_kitti(str(tmp_path / "kitti.txt"))
+    row = np.array([float(x) for x in (tmp_path / "kitti.txt").read_text().splitlines()[0].split()])
+    assert row.shape == (12,)
+    np.testing.assert_allclose(row.reshape(3, 4), np.linalg.inv(slam.trajectory()[0][1])[:3], atol=1e-6)
+    slam.save_keyframe_trajectory_tum(str(tmp_path / "kf.txt"))
+    assert len((tmp_path / "kf.txt").read_text().splitlines()) == slam.n_keyframes()
+
+
+def _shared_map(slam):
+    """The port SLAM's map, and a JAX MapState with the same arrays."""
+    arrays = convert.map_state_to_numpy(slam.map)
+    jm = jstate.MapState(jstate.MapConfig(**arrays["cfg"]))
+    for k, v in arrays.items():
+        if k != "cfg":
+            setattr(jm, k, v.copy() if isinstance(v, np.ndarray) else type(v)(v))
+    return convert.map_state_from_numpy(arrays), jm
+
+
+def _trackers(slam):
+    tm, jm = _shared_map(slam)
+    tvoc = slam.voc
+    jvoc = jvocabulary.Vocabulary.load(tsystem.os.path.join(
+        tsystem.os.path.dirname(jsystem.__file__), "retrieval", "default_voc.npz"))
+    tdb, jdb = tdatabase.KeyFrameDatabase(tvoc, 64), jdatabase.KeyFrameDatabase(jvoc, 64)
+    for kf in tm.kf_ids():
+        tdb.add(int(kf), tm.kf_feat_desc[kf], tm.kf_feat_valid[kf])
+        jdb.add(int(kf), jm.kf_feat_desc[kf], jm.kf_feat_valid[kf])
+    cfg = tconfig.SlamConfig(**CFG)
+    tt = ttracker.Tracker(TCAM, cfg, tm, kfdb=tdb, device="cpu")
+    jt = jtracker.Tracker(JCAM, jconfig.SlamConfig(**CFG), jm, kfdb=jdb)
+    return tt, jt
+
+
+def _query(frame, seed=77):
+    world = jsynthetic.make_world(3, n_points=3000)
+    R, t = jsynthetic.circular_trajectory(40)[frame]
+    jf, _ = jsynthetic.render_features(world, JCAM, R, t, n_feat=512, seed=seed)
+    tf = convert.features_from_numpy({k: np.asarray(v) for k, v in jf._asdict().items()}, device="cpu")
+    return jf, tf
+
+
+def _pose_close(tt, jt):
+    dR = tt.last_R @ np.asarray(jt.last_R).T
+    ang = np.degrees(np.arccos(np.clip((np.trace(dR) - 1) / 2, -1, 1)))
+    c_t = -tt.last_R.T @ tt.last_t
+    c_j = -np.asarray(jt.last_R).T @ np.asarray(jt.last_t)
+    return np.linalg.norm(c_t - c_j), ang
+
+
+def test_relocalization_matches_jax(seq):
+    slam, _, _ = seq
+    tt, jt = _trackers(slam)
+    jf, tf = _query(23)
+    assert tt._relocalize(tf) and jt._relocalize(jf)
+    assert tt.last_kf == jt.last_kf
+    dc, ang = _pose_close(tt, jt)
+    assert dc < 0.01 and ang < 0.5, (dc, ang)
+
+
+def test_reference_keyframe_fallback_matches_jax(seq):
+    slam, _, _ = seq
+    tt, jt = _trackers(slam)
+    kf = int(slam.map.kf_ids()[-1])
+    for t in (tt, jt):
+        t.last_kf = kf
+        t.last_R = slam.map.kf_R[kf].copy()
+        t.last_t = slam.map.kf_t[kf].copy()
+    jf, tf = _query(int(np.argmin(np.abs(np.arange(40) * 0.05 - slam.map.kf_time[kf]))) + 1, seed=78)
+    assert tt._track_reference_kf(tf) and jt._track_reference_kf(jf)
+    dc, ang = _pose_close(tt, jt)
+    assert dc < 0.01 and ang < 0.5, (dc, ang)
+
+
+def test_localization_mode_and_resets():
+    slam, _, _ = run("torch", n_frames=14)
+    n_kf = slam.n_keyframes()
+    world = tsynthetic.make_world(3, n_points=3000)
+    poses = tsynthetic.circular_trajectory(40)
+    slam.activate_localization_mode()
+    for i in range(14, 24):
+        feats, _ = tsynthetic.render_features(world, TCAM, *poses[i], n_feat=512, seed=i, device="cpu")
+        assert slam.track_features(feats, i * 0.05) is not None
+    assert slam.n_keyframes() == n_kf
+    slam.deactivate_localization_mode()
+    slam.reset_active_map()
+    assert slam.state == "NOT_INITIALIZED" and slam.n_keyframes() == 0 and slam.n_map_points() == 0
+    slam.reset()
+    assert slam.state == "NO_IMAGES_YET" and slam.tracker.records == []
+
+
+def test_runs_on_the_card_unless_told_otherwise(monkeypatch):
+    cfg = tconfig.SlamConfig(enable_loop_closing=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tsystem.SLAM(TCAM, cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tsystem.SLAM(TCAM, cfg, device="cuda")
+    assert tsystem.SLAM(TCAM, cfg, device="cpu").device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("part", ["tracker", "mapper", "vocabulary"])
+def test_parts_run_on_the_card_unless_told_otherwise(monkeypatch, part):
+    """The tracker, the mapper and the vocabulary, built on their own, also
+    take the card by default and raise without one."""
+    cfg = tconfig.SlamConfig(enable_loop_closing=False)
+    make = {
+        "tracker": lambda **kw: ttracker.Tracker(TCAM, cfg, tstate.MapState(tstate.MapConfig()), **kw),
+        "mapper": lambda **kw: tmapper.LocalMapper(TCAM, cfg, tstate.MapState(tstate.MapConfig()), **kw),
+        "vocabulary": lambda **kw: tvocabulary.Vocabulary.load(str(TVOC), **kw),
+    }[part]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make(device="cuda")
+    assert make(device="cpu").device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("change", [
+    {"enable_loop_closing": True}, {"async_mapping": True},
+    {"sensor": tconfig.IMU_MONOCULAR}, {"sensor": tconfig.STEREO}, {"sensor": tconfig.RGBD},
+])
+def test_unported_options_raise(change):
+    cfg = dataclasses.replace(tconfig.SlamConfig(enable_loop_closing=False), **change)
+    with pytest.raises(NotImplementedError):
+        tsystem.SLAM(TCAM, cfg, device="cpu")
+
+
+def test_unported_entry_points_raise(tmp_path):
+    cfg = tconfig.SlamConfig(enable_loop_closing=False)
+    fisheye = dataclasses.replace(TCAM, kind=tcameras.KANNALA_BRANDT8, k1=0.01)
+    with pytest.raises(NotImplementedError):
+        tsystem.SLAM(fisheye, cfg, device="cpu")
+    slam = tsystem.SLAM(TCAM, cfg, device="cpu")
+    with pytest.raises(NotImplementedError):
+        slam.track_monocular(np.zeros((480, 752), np.uint8), 0.0, imu_samples=np.zeros((1, 7)))
+    with pytest.raises(NotImplementedError):
+        slam.save_atlas(str(tmp_path / "a.npz"))
+    with pytest.raises(NotImplementedError):
+        slam.load_atlas(str(tmp_path / "a.npz"))

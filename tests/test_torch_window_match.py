@@ -188,3 +188,42 @@ def test_kernel_matches_plain_on_card():
         assert wm.window_match.launches == before + 1
         plain = tuple(x.cpu().numpy() for x in wm.window_match_plain(*args))
         _assert_same((idx, best, second), plain, p[0], p[1])
+
+
+def _caller_problem(seed, caller, N, M):
+    """Inputs as two-view init (radius 100 on level-0 rows, -1 elsewhere;
+    band -1..8; half the targets invalid) and fuse (radius 3 * 1.2^level,
+    band level +- 1, a quarter of the points invisible) call the kernel."""
+    qd, td, quv, txy, qrad, qlo, qhi, tlvl, tval = _problem(seed, N=N, M=M)
+    rng = np.random.default_rng(seed + 100)
+    if caller == "init":
+        qrad = np.where(rng.random(N) < 0.7, np.float32(100.0), np.float32(-1.0)).astype(np.float32)
+        qlo, qhi = np.full(N, -1.0, np.float32), np.full(N, 8.0, np.float32)
+        tval = (rng.random(M) > 0.5).astype(np.float32)
+    else:
+        lvl = rng.integers(0, 8, N).astype(np.float32)
+        qrad = np.where(rng.random(N) > 0.25, np.float32(3.0) * np.float32(1.2) ** lvl,
+                        np.float32(-1.0)).astype(np.float32)
+        qlo, qhi = lvl - 1, lvl + 1
+    return qd, td, quv, txy, qrad, qlo, qhi, tlvl, tval
+
+
+@pytest.mark.parametrize("caller", ["init", "fuse"])
+def test_caller_shapes_match_xla(caller):
+    p = _caller_problem(11, caller, 256, 300)
+    _assert_same(_port(p), _xla(p), p[0], p[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("caller,n,m", [("init", 1024, 1024), ("fuse", 4096, 1024)])
+def test_kernel_matches_plain_at_caller_shapes(caller, n, m):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    p = _caller_problem(12, caller, n, m)
+    args = _port_args(p, "cuda")
+    before = wm.window_match.launches
+    ours = tuple(x.cpu().numpy() for x in wm.window_match(*args))
+    torch.cuda.synchronize()
+    assert wm.window_match.launches == before + 1
+    plain = tuple(x.cpu().numpy() for x in wm.window_match_plain(*args))
+    _assert_same(ours, plain, p[0], p[1])
