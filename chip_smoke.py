@@ -2,11 +2,18 @@
 its plain version, the per-frame tracking program, and monocular SLAM end
 to end.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--save-caller-inputs FILE]
 
 Builds the window-match kernel from `orb_slam3_comments_ghr_torch/csrc`
-and holds it against its plain PyTorch version at the shapes of its three
-callers: tracking, two-view initialization and the mapper's fuse (phase 1).
+and holds it against its plain PyTorch version (phase 1): at the shapes of
+its three callers (tracking, two-view initialization, the mapper's fuse),
+on the edge cases of `utils/match_cases.py` (targets off the image, |du|
+exactly r, all distances tied, r = 1e30 and 0.5, N = 1, M = 777, NaN and
+inf coordinates, no target, M over one shared-memory stage, several rows
+per warp) and on misaligned views; two launches must give the same bits,
+and a CUDA-graph replay the same outputs as an eager launch. Its device
+time per launch comes from a CUDA graph of 100 launches, beside the
+wrapper-included time and the host enqueue time.
 Renders 752x480 EuRoC-cam0 frames of a synthetic two-plane scene, builds a
 4096-point local map from four keyframes and tracks frames 1-24 through
 `programs.extract_and_track` at 1024 features / 8 levels (phase 2), then
@@ -15,15 +22,19 @@ holds one frame against the port on the CPU (phase 3). Phase 4 drives
 two-view initialization, tracking, keyframes, local mapping with local BA,
 and the trajectory, checked against ground truth; then blank frames lose
 tracking, relocalization has to bring it back, and a frame rolled about
-the optical axis has to go through the reference-keyframe fallback. Any
-failure raises. The
-last lines are the card's name and power limit, a JSON line of per-kernel
-results, and the JSON status line. Needs one CUDA card; exits non-zero
-without one.
+the optical axis has to go through the reference-keyframe fallback. Phase
+4 records the window match's arguments of one call of each caller; after
+it, phase 1 holds the kernel against the plain version on them and times
+it there (`--save-caller-inputs` also writes them to FILE for
+`orb_slam3_comments_ghr_torch/utils/time_window_match.py`). Any failure
+raises. The last lines are the card's name and power limit, a JSON line of
+per-kernel results, and the JSON status line. Needs one CUDA card; exits
+non-zero without one.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -39,22 +50,6 @@ def card_line() -> str:
         capture_output=True, text=True, check=True,
     )
     return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, reps: int = 50, warmup: int = 5) -> float:
-    """Median milliseconds of fn() on the card, timed with CUDA events."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
 
 
 def match_problem(seed: int, n: int, m: int, radius, device, caller: str = "track"):
@@ -97,22 +92,48 @@ ALU_OPS_PER_S = 67e12
 
 def window_match_bound(args, matching_mod):
     """(bound_ms, bound_by) of one window match on these inputs: each input
-    read once and each output written once (bytes); a window test of ~8
-    operations for every (query, target) pair, plus 8 XOR, 8 POPC and 8
-    adds for every pair inside a window (operations, counted on this data)."""
-    n, m = args[0].shape[0], args[5].shape[0]
+    read once and each output written once (bytes); 8 XOR, 8 POPC and 8
+    adds for every pair inside a window (operations, counted on this data).
+    No operation is counted for a pair outside every window: a spatial
+    index over the targets, as the kernel's grid, never tests such a pair,
+    and the rows with r <= 0 (most of the padded local map) test none."""
+    n = args[0].shape[0]
     nbytes = sum(a.numel() * a.element_size() for a in args) + 3 * 4 * n
     mask = matching_mod.window_mask(args[1], args[6], args[7], args[8] > 0, args[2],
                                     args[3], args[4])
-    ops = 8 * n * m + 24 * int(mask.sum())
+    ops = 24 * int(mask.sum())
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ALU_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def check_against_plain(wm_mod, matching_mod, args, label: str):
+    """One launch against the plain version on the same inputs: best and
+    second bit-equal, idx equal up to ties (idx 0 on empty rows); a second
+    launch must give the same bits. Returns the largest |difference| of
+    best and second (0, or it raises) and the kernel's `best`."""
+    from orb_slam3_comments_ghr_torch.utils import time_window_match as twm
+
+    out = wm_mod.window_match(*args)
+    again = wm_mod.window_match(*args)
+    plain = wm_mod.window_match_plain(*args)
+    torch.cuda.synchronize()
+    err = max((int((a.long() - b.long()).abs().max()) if a.numel() else 0)
+              for a, b in zip(out[1:], plain[1:]))
+    if not twm.agrees_with_plain(out, plain, args[0], args[5], matching_mod.BIG):
+        raise AssertionError(f"{label}: the kernel disagrees with the plain version "
+                             f"(best/second differ by up to {err})")
+    if not all(torch.equal(a, b) for a, b in zip(out, again)):
+        raise AssertionError(f"{label}: two launches on the same inputs differ")
+    return err, out[1]
+
+
 def phase1_kernel(window_match_mod, matching_mod, device):
-    """Kernel against plain on the card; returns (max_abs_err, ms,
-    plain_ms, bound_ms, bound_by)."""
-    wm = window_match_mod.window_match
+    """Kernel against plain on the card: the callers' shapes, the edge
+    cases, misaligned views, determinism, a CUDA-graph replay; times on
+    the random 4096x1024 r = 80 problem. Returns (max_abs_err, the times
+    and bound of that problem)."""
+    from orb_slam3_comments_ghr_torch.utils import match_cases, time_window_match as twm
+
     cases = [(0, 4096, 1024, 80.0, "track"), (1, 4096, 1024, 15.0, "track"),
              (2, 4096, 1024, 300.0, "track"), (3, 1000, 777, 80.0, "track"),
              (4, 1000, 777, 0.0, "track"), (5, 1024, 1024, 100.0, "init"),
@@ -120,30 +141,81 @@ def phase1_kernel(window_match_mod, matching_mod, device):
     max_err = 0
     for seed, n, m, radius, caller in cases:
         args = match_problem(seed, n, m, radius, device, caller)
-        idx, best, second = wm(*args)
-        idx_p, best_p, second_p = window_match_mod.window_match_plain(*args)
-        torch.cuda.synchronize()
-        err = max(int((best - best_p).abs().max()), int((second - second_p).abs().max()))
+        err, best = check_against_plain(window_match_mod, matching_mod, args,
+                                        f"case {caller} seed {seed}")
         max_err = max(max_err, err)
-        if err != 0:
-            raise AssertionError(f"case {seed}: best/second differ from plain by {err}")
-        # idx equal, or where it differs, at a column whose distance is `best`
-        dist = matching_mod.hamming_matrix(args[0], args[5])
-        took = dist.gather(1, idx.long()[:, None])[:, 0]
-        differ = (idx != idx_p) & (best < matching_mod.BIG)
-        if bool((differ & (took != best)).any()) or bool(((idx != idx_p) & (best >= matching_mod.BIG)).any()):
-            raise AssertionError(f"case {seed}: argmin differs beyond ties")
         if radius == 0.0 and not bool((best == matching_mod.BIG).all()):
             raise AssertionError("radius-0 rows must be empty")
         print(f"phase1 case {caller} seed={seed} N={n} M={m} r={radius}: ok "
-              f"(rows with a match {int((best < matching_mod.BIG).sum())}, idx ties {int(differ.sum())})")
+              f"(rows with a match {int((best < matching_mod.BIG).sum())})")
+    for case in match_cases.ALL_CASES:
+        args = tuple(torch.from_numpy(a).to(device) for a in match_cases.edge_problem(case))
+        err, best = check_against_plain(window_match_mod, matching_mod, args,
+                                        f"edge case {case}")
+        max_err = max(max_err, err)
+        print(f"phase1 edge case {case} N={args[0].shape[0]} M={args[5].shape[0]}: ok "
+              f"(rows with a match {int((best < matching_mod.BIG).sum())})")
+    # descriptors and pixels as views 4 bytes into their buffers
+    args = list(match_problem(7, 300, 500, 40.0, device))
+    for i in (5, 6):
+        buf = torch.empty(args[i].numel() + 1, dtype=args[i].dtype, device=device)
+        buf[1:] = args[i].flatten()
+        args[i] = buf[1:].view(args[i].shape)
+    max_err = max(max_err, check_against_plain(window_match_mod, matching_mod, tuple(args),
+                                               "misaligned views")[0])
+    print("phase1 misaligned views: ok")
+    # a launch captured in a CUDA graph and replayed gives the eager outputs
+    args = match_problem(6, 4096, 1024, None, device, "fuse")
+    eager = torch.stack(window_match_mod.window_match(*args))
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = window_match_mod.window_match(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    if not torch.equal(torch.stack(captured), eager):
+        raise AssertionError("a CUDA-graph replay differs from the eager launch")
+    print("phase1 CUDA-graph replay equals the eager launch")
+
     args = match_problem(0, 4096, 1024, 80.0, device)
-    ms = cuda_ms(lambda: wm(*args))
-    plain_ms = cuda_ms(lambda: window_match_mod.window_match_plain(*args))
-    bound_ms, bound_by = window_match_bound(args, matching_mod)
-    print(f"phase1 window_match 4096x1024 r=80: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {bound_ms:.6f} ms ({bound_by})")
-    return max_err, ms, plain_ms, bound_ms, bound_by
+    times = twm.time_caller(window_match_mod, args)
+    times["bound_ms"], times["bound_by"] = window_match_bound(args, matching_mod)
+    print(f"phase1 window_match 4096x1024 r=80: device {times['device_ms'] * 1e3:.3f} us per "
+          f"launch (CUDA graph of 100), wrapper incl. {times['wrapper_ms'] * 1e3:.3f} us per call, "
+          f"enqueue {times['enqueue_us']:.3f} us, plain {times['plain_ms']:.4f} ms, bound "
+          f"{times['bound_ms'] * 1e3:.4f} us ({times['bound_by']})")
+    return max_err, times
+
+
+def phase1_callers(window_match_mod, matching_mod, recorded, device):
+    """The kernel against plain, and its times, on the arguments that
+    phase 4 recorded from each caller. Returns (max_abs_err, {caller:
+    times, bound and counts})."""
+    from orb_slam3_comments_ghr_torch.utils import time_window_match as twm
+
+    max_err, out = 0, {}
+    for caller in RECORD_AT:
+        if caller not in recorded:
+            raise AssertionError(f"phase 4 recorded no call of {caller}")
+        args = tuple(a.to(device) for a in recorded[caller])
+        max_err = max(max_err, check_against_plain(window_match_mod, matching_mod, args,
+                                                   f"recorded {caller}")[0])
+        t = twm.time_caller(window_match_mod, args)
+        t["bound_ms"], t["bound_by"] = window_match_bound(args, matching_mod)
+        t["share_of_bound"] = t["bound_ms"] / t["device_ms"]
+        mask = matching_mod.window_mask(args[1], args[6], args[7], args[8] > 0, args[2],
+                                        args[3], args[4])
+        t.update(n=args[0].shape[0], m=args[5].shape[0],
+                 rows_searching=int((args[2] > 0).sum()), candidates=int(mask.sum()))
+        out[caller] = t
+        print(f"phase1 recorded {caller} (N={t['n']}, M={t['m']}, rows searching "
+              f"{t['rows_searching']}, candidates {t['candidates']}): ok; device "
+              f"{t['device_ms'] * 1e3:.3f} us per launch (CUDA graph of 100; no row searching "
+              f"{t['empty_ms'] * 1e3:.3f} us), wrapper incl. "
+              f"{t['wrapper_ms'] * 1e3:.3f} us, enqueue {t['enqueue_us']:.3f} us, plain "
+              f"{t['plain_ms']:.4f} ms, bound {t['bound_ms'] * 1e3:.4f} us ({t['bound_by']}), "
+              f"{100 * t['share_of_bound']:.2f} % of it")
+    return max_err, out
 
 
 def host_ms(fn) -> float:
@@ -175,7 +247,7 @@ def render_sequence(n: int):
     return frames, scene, poses
 
 
-def phase2_slice(device, wm, seq):
+def phase2_slice(device, wm_mod, seq):
     """Track frames 1..24 against a 4096-point map from keyframes 0/10/20/30.
     Checks accuracy and the kernel's launch count, prints per-frame times and
     returns (launches, frame 1, the map)."""
@@ -197,7 +269,7 @@ def phase2_slice(device, wm, seq):
     R = torch.from_numpy(poses[0][0]).to(device)
     t = torch.from_numpy(poses[0][1]).to(device)
     errs, inliers = [], []
-    wm.launches = 0
+    wm_mod.launches = 0
     for i in range(1, PHASE2_FRAMES + 1):
         _, res = programs.extract_and_track(cam, cam, frames[i], pts, R, t)
         R, t = res.R, res.t
@@ -207,7 +279,7 @@ def phase2_slice(device, wm, seq):
         errs.append(float(np.linalg.norm(camera_centre(Rn, tn) - camera_centre(*poses[i]))))
         inliers.append(int(res.n_inliers))
     torch.cuda.synchronize()
-    launches = wm.launches
+    launches = wm_mod.launches
     errs, inliers = np.asarray(errs), np.asarray(inliers)
     print(f"phase2 {PHASE2_FRAMES} frames: centre error median {np.median(errs) * 1e3:.3f} mm, "
           f"max {errs.max() * 1e3:.3f} mm; inliers min {inliers.min()}, "
@@ -267,26 +339,50 @@ def phase3_against_cpu(device, frame, pts, pose):
 PHASE4_FRAMES = 120
 
 
-def _count_calls(module, name: str, counts: dict, key: str):
-    """Replace module.name by a wrapper that counts its calls under `key`;
-    returns the original, to put back."""
+def _count_calls(module, name: str, counts: dict, key: str, active: list):
+    """Replace module.name by a wrapper that counts its calls under `key`
+    and keeps `key` on the stack `active` during the call; returns the
+    original, to put back."""
     fn = getattr(module, name)
 
     def counted(*args, **kwargs):
         counts[key] += 1
-        return fn(*args, **kwargs)
+        active.append(key)
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            active.pop()
 
     setattr(module, name, counted)
     return fn
 
 
-def phase4_slam(wm, seq):
+# the call of each caller whose window-match arguments phase 4 keeps: the
+# 60th tracking call (a frame well after init, the map grown), every init
+# attempt (the last one kept: the attempt that initialized), the 40th fuse
+RECORD_AT = {"tracking": 60, "init": None, "fuse": 40}
+
+
+def _recording(fn, calls: dict, active: list, recorded: dict):
+    """fn (window_match), keeping a device copy of its arguments on the
+    calls that RECORD_AT names, by the caller on top of `active`."""
+    def recorded_fn(*args):
+        key = active[-1] if active else None
+        if key in RECORD_AT and RECORD_AT[key] in (None, calls[key]):
+            recorded[key] = tuple(a.clone() for a in args)
+        return fn(*args)
+
+    return recorded_fn
+
+
+def phase4_slam(wm_mod, seq):
     """`SLAM.track_monocular` over frames 0..119 (20 Hz timestamps) at the
     default, full-width configuration, loop closing off. Fails unless the
     run initializes, tracks >= 90 % of the frames after init, ends with >= 3
     keyframes and > 200 map points and a Sim(3)-aligned ATE < 5 cm, and the
     window match launched once per matcher call on its three paths. Returns
-    the launch count."""
+    the launch count, the SLAM object and the recorded window-match
+    arguments ({caller: args on the card})."""
     from orb_slam3_comments_ghr_torch.ops import cameras, matching
     from orb_slam3_comments_ghr_torch.pipeline import programs
     from orb_slam3_comments_ghr_torch.system import SLAM
@@ -294,15 +390,22 @@ def phase4_slam(wm, seq):
     from orb_slam3_comments_ghr_torch.utils.config import SlamConfig
 
     frames, _, poses = seq
+    wm = wm_mod.window_match
     slam = SLAM(cameras.euroc_cam0(), SlamConfig(enable_loop_closing=False), device="cuda")
     calls = {"tracking": 0, "init": 0, "fuse": 0}
+    active, recorded = [], {}
     originals = [
         (programs, "track_against_points",
-         _count_calls(programs, "track_against_points", calls, "tracking")),
+         _count_calls(programs, "track_against_points", calls, "tracking", active)),
         (matching, "search_for_initialization",
-         _count_calls(matching, "search_for_initialization", calls, "init")),
-        (programs, "fuse_project", _count_calls(programs, "fuse_project", calls, "fuse")),
+         _count_calls(matching, "search_for_initialization", calls, "init", active)),
+        (programs, "fuse_project", _count_calls(programs, "fuse_project", calls, "fuse", active)),
     ]
+    # where the callers look the window match up: programs' global, and the
+    # module attribute that search_for_initialization imports at each call
+    for module in (programs, wm_mod):
+        originals.append((module, "window_match", module.window_match))
+        module.window_match = _recording(wm, calls, active, recorded)
     kf_ms = []
     process_keyframe = slam.mapper.process_keyframe
 
@@ -312,7 +415,7 @@ def phase4_slam(wm, seq):
     slam.mapper.process_keyframe = timed_process_keyframe
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    wm.launches = 0
+    wm_mod.launches = 0
     try:
         tracked, plain_frame_ms, init_frame = [], [], None
         for i in range(PHASE4_FRAMES):
@@ -328,7 +431,7 @@ def phase4_slam(wm, seq):
             if init_frame is not None and i > init_frame and slam.tracker.pending_kf is None:
                 plain_frame_ms.append(frame_ms)
         torch.cuda.synchronize()
-        launches = wm.launches
+        launches = wm_mod.launches
     finally:
         for module, name, fn in originals:
             setattr(module, name, fn)
@@ -358,7 +461,7 @@ def phase4_slam(wm, seq):
         raise AssertionError("phase4: the init or the fuse path never ran")
     if launches != sum(calls.values()):
         raise AssertionError(f"phase4: {launches} launches for {sum(calls.values())} matcher calls")
-    return launches, slam
+    return launches, slam, recorded
 
 
 LOST_BLANK_FRAMES = 3
@@ -394,7 +497,7 @@ def _count_outcomes(obj, name: str, counts: dict):
     setattr(obj, name, counted)
 
 
-def phase4_lost_and_back(wm, slam, seq):
+def phase4_lost_and_back(wm_mod, slam, seq):
     """Continue phase 4's run: blank frames lose tracking, then the camera
     comes back at RETURN_POSES. Fails unless tracking is lost on the first
     blank frame, relocalization brings the state back to OK on the first
@@ -415,19 +518,19 @@ def phase4_lost_and_back(wm, slam, seq):
         for (j, deg), pose in zip(RETURN_POSES, back_poses)]
     gt_poses = list(poses[:PHASE4_FRAMES]) + [poses[PHASE4_FRAMES - 1]] * LOST_BLANK_FRAMES \
         + back_poses
-    calls = {"tracking": 0, "init": 0, "fuse": 0}
+    calls, active = {"tracking": 0, "init": 0, "fuse": 0}, []
     originals = [
         (programs, "track_against_points",
-         _count_calls(programs, "track_against_points", calls, "tracking")),
+         _count_calls(programs, "track_against_points", calls, "tracking", active)),
         (matching, "search_for_initialization",
-         _count_calls(matching, "search_for_initialization", calls, "init")),
-        (programs, "fuse_project", _count_calls(programs, "fuse_project", calls, "fuse")),
+         _count_calls(matching, "search_for_initialization", calls, "init", active)),
+        (programs, "fuse_project", _count_calls(programs, "fuse_project", calls, "fuse", active)),
     ]
     outcomes = {}
     for name in ("_relocalize", "_track_reference_kf"):
         _count_outcomes(slam.tracker, name, outcomes)
     torch.cuda.synchronize()
-    wm.launches = 0
+    wm_mod.launches = 0
     try:
         states, tracked, fell_back = [], [], []
         for k, img in enumerate(inputs):
@@ -441,7 +544,7 @@ def phase4_lost_and_back(wm, slam, seq):
                     raise AssertionError(f"lost-and-back input {k}: non-finite pose")
                 tracked.append(k)
         torch.cuda.synchronize()
-        launches = wm.launches
+        launches = wm_mod.launches
     finally:
         for module, name, fn in originals:
             setattr(module, name, fn)
@@ -476,10 +579,18 @@ def phase4_lost_and_back(wm, slam, seq):
     return launches
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="Run the PyTorch port on a CUDA card.")
+    ap.add_argument("--save-caller-inputs", metavar="FILE",
+                    help="also write the window-match arguments recorded in phase 4 to FILE "
+                         "(torch.save, CPU tensors) for utils/time_window_match.py")
+    opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card; torch.cuda.is_available() is False")
-    from orb_slam3_comments_ghr_torch.ops import matching, window_match
+    try:
+        from orb_slam3_comments_ghr_torch.ops import matching, window_match
+    except ModuleNotFoundError as e:
+        raise SystemExit(f"chip_smoke.py runs from the root of a checkout of the repo: {e}")
 
     card = card_line()
     print(card)
@@ -488,27 +599,37 @@ def main() -> int:
     lib = window_match.build()
     print(f"built {lib.name} in {time.perf_counter() - t0:.2f} s")
 
-    max_err, ms, plain_ms, bound_ms, bound_by = phase1_kernel(window_match, matching, device)
+    max_err, synthetic_times = phase1_kernel(window_match, matching, device)
     print("phase1 passed")
     t0 = time.perf_counter()
     seq = render_sequence(PHASE4_FRAMES)
     print(f"rendered {PHASE4_FRAMES} frames in {time.perf_counter() - t0:.1f} s")
-    _, frame, pts = phase2_slice(device, window_match.window_match, seq)
+    _, frame, pts = phase2_slice(device, window_match, seq)
     print("phase2 passed")
     phase3_against_cpu(device, frame, pts, seq[2][0])
     print("phase3 passed")
     t0 = time.perf_counter()
-    launches, slam = phase4_slam(window_match.window_match, seq)
-    phase4_lost_and_back(window_match.window_match, slam, seq)
+    launches, slam, recorded = phase4_slam(window_match, seq)
+    phase4_lost_and_back(window_match, slam, seq)
     print(f"phase4 passed in {time.perf_counter() - t0:.1f} s")
+    if opts.save_caller_inputs:
+        torch.save({k: tuple(a.cpu() for a in v) for k, v in recorded.items()},
+                   opts.save_caller_inputs)
+    err, callers = phase1_callers(window_match, matching, recorded, device)
+    max_err = max(max_err, err)
+    print("phase1 on the recorded caller inputs passed")
 
+    track = callers["tracking"]
     print(card)
     print(json.dumps({"kernels": [{
         "name": "window_match", "route": "cuda",
         "source": "orb_slam3_comments_ghr_torch/csrc/window_match.cu",
         "replaces": "orb_slam3_comments_ghr_tpu/ops/pallas_match.py:88",
-        "launches": launches, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "launches": launches, "max_abs_err": max_err,
+        # device time per launch on the recorded tracking call (CUDA graph)
+        "ms": track["device_ms"], "plain_ms": track["plain_ms"],
+        "bound_ms": track["bound_ms"], "bound_by": track["bound_by"], "library_ms": None,
+        "callers": callers, "random_4096x1024_r80": synthetic_times,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -44,7 +44,11 @@ def hamming_matrix(da: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
 def masked_best2(dist: torch.Tensor, mask: torch.Tensor):
     """Row-wise best and second-best over masked columns. Returns
     (best_idx (N,) int32, best (N,), second (N,)); rows without a candidate
-    get best = second = BIG and idx 0 (argmin takes the first of ties)."""
+    get best = second = BIG and idx 0 (argmin takes the first of ties),
+    also when there is no column at all."""
+    if dist.shape[1] == 0:  # argmin over an empty dimension raises
+        big = torch.full((dist.shape[0],), BIG, dtype=torch.int32, device=dist.device)
+        return torch.zeros_like(big), big, big.clone()
     d = torch.where(mask, dist, BIG)
     best_idx = torch.argmin(d, dim=1)
     best = d.gather(1, best_idx[:, None])[:, 0]

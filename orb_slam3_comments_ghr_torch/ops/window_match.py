@@ -10,7 +10,22 @@ best = second = BIG and idx 0. An invisible query comes in with r = -1.
 
 `window_match` launches the CUDA kernel of `csrc/window_match.cu` on CUDA
 tensors and runs `window_match_plain` on CPU tensors. There is no fallback:
-on a CUDA tensor the kernel runs or the call raises.
+on a CUDA tensor the kernel runs or the call raises. Each call with N > 0
+is one launch, counted in this module's `launches`.
+
+The kernel (its head note has the details) is bound by latency, not by
+its few operations and bytes: the launch, two global round trips, and the
+dependent steps of building and searching a grid. A block whose rows all
+have r <= 0 leaves before reading a target; the others load the targets'
+pixels into registers, stage the descriptors into shared memory by one TMA
+bulk copy, sort the live targets into a grid of cells over their bounding
+box, and let each warp scan only the cells its row's window overlaps, with
+the exact f32 test on every candidate. Tensor cores were considered and not
+taken: a dense distance product would leave the dense mask and top-2 that
+the grid avoids. The results are a function of the candidate set alone, so
+two launches give the same bits, and the kernel can be captured in a CUDA
+graph. Inputs need only be contiguous: a descriptor pointer that is not
+16-B aligned is staged by 4-B copies in the kernel.
 
 The kernel is compiled with nvcc for sm_90a at first use into
 `orb_slam3_comments_ghr_torch/build/` (ignored by git through the `build/`
@@ -78,11 +93,14 @@ def build() -> Path:
 def _library():
     """The launch entry of the built kernel, built and loaded once per
     process."""
-    lib = ctypes.CDLL(str(build()))
-    fn = lib.window_match_launch
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4
+    fn = ctypes.CDLL(str(build())).window_match_launch
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_int]
+                   + [ctypes.c_void_p] * 4 + [ctypes.c_int])
     fn.restype = ctypes.c_int
     return fn
+
+
+launches = 0  # kernel launches of window_match, in this process
 
 
 def _check(name, x, dtype, shape, device):
@@ -117,22 +135,14 @@ def window_match(qdesc, q_uv, q_radius, q_lvl_lo, q_lvl_hi,
     if dev.type != "cuda":
         raise ValueError(f"window_match runs on cpu or cuda tensors, got {dev}")
 
-    launch = _library()
-    idx = torch.empty(n, dtype=i32, device=dev)
-    best = torch.empty(n, dtype=i32, device=dev)
-    second = torch.empty(n, dtype=i32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = launch(
-            qdesc.data_ptr(), q_uv.data_ptr(), q_radius.data_ptr(),
-            q_lvl_lo.data_ptr(), q_lvl_hi.data_ptr(),
-            tdesc.data_ptr(), t_xy.data_ptr(), t_level.data_ptr(), t_valid.data_ptr(),
-            n, m, idx.data_ptr(), best.data_ptr(), second.data_ptr(), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"window_match kernel launch failed: cudaError {err}")
-    window_match.launches += 1
-    return idx, best, second
-
-
-window_match.launches = 0
+    global launches
+    args = (qdesc, q_uv, q_radius, q_lvl_lo, q_lvl_hi, tdesc, t_xy, t_level, t_valid)
+    out = torch.empty((3, n), dtype=i32, device=dev)  # idx, best, second
+    if n:
+        ptr = out.data_ptr()
+        err = _library()(*[a.data_ptr() for a in args], n, m, ptr, ptr + 4 * n, ptr + 8 * n,
+                         torch.cuda.current_stream(dev).cuda_stream, dev.index)
+        if err != 0:
+            raise RuntimeError(f"window_match kernel launch failed: cudaError {err}")
+        launches += 1
+    return out.unbind(0)

@@ -59,9 +59,9 @@ def _assert_idx_up_to_ties(idx_t, idx_j, ok, dist):
 
 def test_search_for_initialization_matches_jax(views):
     (ja, ta, _), (jb, tb, _) = views[0], views[1]
-    before = twm.window_match.launches
+    before = twm.launches
     idx_t, dist_t, ok_t = tmatching.search_for_initialization(ta, tb, window=100.0, ratio=0.9)
-    assert twm.window_match.launches == before  # CPU tensors: the plain version
+    assert twm.launches == before  # CPU tensors: the plain version
     idx_j, dist_j, ok_j = jmatching.search_for_initialization(ja, jb, window=100.0, ratio=0.9)
     ok = np.asarray(ok_j)
     np.testing.assert_array_equal(ok_t.numpy(), ok)
@@ -161,12 +161,12 @@ def test_fuse_project_multi_matches_jax(views):
     jidx, jok, jex = jprograms.fuse_project_multi(
         JCAM, J(Rs), J(ts), jlp, jnp.stack([v[0].xy for v in nbs]), jnp.stack([v[0].level for v in nbs]),
         jnp.stack([v[0].desc for v in nbs]), jnp.stack([v[0].valid for v in nbs]), J(feat_mp))
-    before = twm.window_match.launches
+    before = twm.launches
     tidx, tok, tex = tprograms.fuse_project_multi(
         TCAM, T(Rs), T(ts), tlp, torch.stack([v[1].xy for v in nbs]),
         torch.stack([v[1].level for v in nbs]), torch.stack([v[1].desc for v in nbs]),
         torch.stack([v[1].valid for v in nbs]), T(feat_mp))
-    assert twm.window_match.launches == before
+    assert twm.launches == before
     ok = np.asarray(jok)
     np.testing.assert_array_equal(tok.numpy(), ok)
     for b, v in enumerate(nbs):

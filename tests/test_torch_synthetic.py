@@ -107,6 +107,7 @@ def test_port_imports_without_jax():
         "import orb_slam3_comments_ghr_torch.retrieval.database\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for m in mods: importlib.import_module(m)\n"
+        "import chip_smoke\n"
         "assert not any(k.startswith('orb_slam3_comments_ghr_tpu') for k in sys.modules)\n"
         "print(len(mods))\n"
     )
@@ -116,5 +117,5 @@ def test_port_imports_without_jax():
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 28
     imports = re.compile(r"^\s*(import|from)\s+(jax|orb_slam3_comments_ghr_tpu)\b", re.M)
-    for path in PORT.rglob("*.py"):
+    for path in [*PORT.rglob("*.py"), REPO / "chip_smoke.py"]:
         assert not imports.search(path.read_text()), path

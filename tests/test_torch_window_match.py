@@ -13,23 +13,22 @@ import torch
 
 from orb_slam3_comments_ghr_torch.ops import matching as tmatching
 from orb_slam3_comments_ghr_torch.ops import window_match as wm
+from orb_slam3_comments_ghr_torch.utils import match_cases
 
 torch.set_num_threads(1)
+
+BIG = 1 << 20
+
+
+def _test_order(arrays):
+    """window_match's argument order -> this file's (uint32 words)."""
+    qd, quv, qrad, qlo, qhi, td, txy, tlvl, tval = arrays
+    return qd.view(np.uint32), td.view(np.uint32), quv, txy, qrad, qlo, qhi, tlvl, tval
 
 
 def _problem(seed=0, N=256, M=512, radius=80.0):
     """The recipe of tests/test_pallas_match.py, as numpy arrays."""
-    rng = np.random.default_rng(seed)
-    qd = rng.integers(0, 2**32, (N, 8), dtype=np.uint32)
-    td = rng.integers(0, 2**32, (M, 8), dtype=np.uint32)
-    quv = rng.random((N, 2), np.float32) * 600
-    txy = rng.random((M, 2), np.float32) * 600
-    qrad = np.full((N,), radius, np.float32)
-    qlo = rng.integers(0, 3, N).astype(np.float32)
-    qhi = qlo + 2
-    tlvl = rng.integers(0, 8, M).astype(np.float32)
-    tval = (rng.random(M) > 0.1).astype(np.float32)
-    return qd, td, quv, txy, qrad, qlo, qhi, tlvl, tval
+    return _test_order(match_cases.random_problem(seed, N, M, radius))
 
 
 def _port_args(p, device="cpu"):
@@ -60,12 +59,38 @@ def _pallas(p):
     import jax.numpy as jnp
     from orb_slam3_comments_ghr_tpu.ops import matching as jmatching, pallas_match
 
-    qd, td, quv, txy, qrad, qlo, qhi, tlvl, tval = (jnp.asarray(a) for a in p)
+    # the Pallas kernel takes N % 128 == 0: pad with rows of radius -1
+    n = p[0].shape[0]
+    pad = -n % pallas_match.TILE_N
+    qd, quv, qrad, qlo, qhi = (np.concatenate([a, np.full((pad,) + a.shape[1:], fill, a.dtype)])
+                               for a, fill in zip((p[0], p[2], p[4], p[5], p[6]), (0, 0, -1, 0, 0)))
+    td, txy, tlvl, tval = p[1], p[3], p[7], p[8]
     out = pallas_match.window_match_tpu(
-        jmatching.unpack_pm1(qd), quv, qrad, qlo, qhi, jmatching.unpack_pm1(td),
-        txy, tlvl, tval, interpret=True,
+        jmatching.unpack_pm1(jnp.asarray(qd)), jnp.asarray(quv), jnp.asarray(qrad),
+        jnp.asarray(qlo), jnp.asarray(qhi), jmatching.unpack_pm1(jnp.asarray(td)),
+        jnp.asarray(txy), jnp.asarray(tlvl), jnp.asarray(tval), interpret=True,
     )
-    return tuple(np.asarray(x) for x in out)
+    return tuple(np.asarray(x)[:n] for x in out)
+
+
+def _numpy_ref(p):
+    """The function by its definition, in numpy float32: for the inputs
+    JAX's paths are not held to (non-finite coordinates, no target)."""
+    qd, td, quv, txy, qrad, qlo, qhi, tlvl, tval = p
+    n, m = qd.shape[0], td.shape[0]
+    if m == 0:
+        return np.zeros(n, np.int32), np.full(n, BIG, np.int32), np.full(n, BIG, np.int32)
+    with np.errstate(invalid="ignore"):
+        mask = ((np.abs(quv[:, None, 0] - txy[None, :, 0]) < qrad[:, None])
+                & (np.abs(quv[:, None, 1] - txy[None, :, 1]) < qrad[:, None])
+                & (tval[None, :] > 0) & (tlvl[None, :] >= qlo[:, None])
+                & (tlvl[None, :] <= qhi[:, None]))
+    dist = np.unpackbits((qd[:, None, :] ^ td[None, :, :]).view(np.uint8), axis=-1).sum(-1)
+    d = np.where(mask, dist, BIG).astype(np.int32)
+    idx = np.argmin(d, axis=1)
+    best = d[np.arange(n), idx]
+    d[np.arange(n), idx] = BIG
+    return idx.astype(np.int32), best, d.min(axis=1)
 
 
 def _assert_same(ours, ref, qd, td):
@@ -76,8 +101,8 @@ def _assert_same(ours, ref, qd, td):
     hit = best_r < (1 << 20)
     dist = tmatching.hamming_matrix(torch.from_numpy(qd.view(np.int32)),
                                     torch.from_numpy(td.view(np.int32))).numpy()
-    took = dist[np.arange(len(idx)), idx]
-    np.testing.assert_array_equal(took[hit], best_r[hit])
+    took = dist[np.flatnonzero(hit), idx[hit]]
+    np.testing.assert_array_equal(took, best_r[hit])
     np.testing.assert_array_equal(idx[~hit], 0)
     np.testing.assert_array_equal(idx_r[~hit], 0)
 
@@ -154,10 +179,10 @@ def test_popcount32_edge_words():
 
 def test_cpu_takes_plain_version_without_launch():
     args = _port_args(_problem(7, N=64, M=96))
-    before = wm.window_match.launches
+    before = wm.launches
     ours = wm.window_match(*args)
     plain = wm.window_match_plain(*args)
-    assert wm.window_match.launches == before
+    assert wm.launches == before
     for a, b in zip(ours, plain):
         assert torch.equal(a, b)
 
@@ -182,10 +207,10 @@ def test_kernel_matches_plain_on_card():
     for seed, n, m, radius in [(0, 4096, 1024, 80.0), (1, 1000, 777, 15.0), (2, 1000, 777, 0.0)]:
         p = _problem(seed, N=n, M=m, radius=radius)
         args = _port_args(p, "cuda")
-        before = wm.window_match.launches
+        before = wm.launches
         idx, best, second = (x.cpu().numpy() for x in wm.window_match(*args))
         torch.cuda.synchronize()
-        assert wm.window_match.launches == before + 1
+        assert wm.launches == before + 1
         plain = tuple(x.cpu().numpy() for x in wm.window_match_plain(*args))
         _assert_same((idx, best, second), plain, p[0], p[1])
 
@@ -221,9 +246,92 @@ def test_kernel_matches_plain_at_caller_shapes(caller, n, m):
         pytest.skip("needs a CUDA card")
     p = _caller_problem(12, caller, n, m)
     args = _port_args(p, "cuda")
-    before = wm.window_match.launches
+    before = wm.launches
     ours = tuple(x.cpu().numpy() for x in wm.window_match(*args))
     torch.cuda.synchronize()
-    assert wm.window_match.launches == before + 1
+    assert wm.launches == before + 1
     plain = tuple(x.cpu().numpy() for x in wm.window_match_plain(*args))
     _assert_same(ours, plain, p[0], p[1])
+
+
+
+def _edge_problem(case):
+    return _test_order(match_cases.edge_problem(case))
+
+
+EDGE_CASES, PLAIN_ONLY = list(match_cases.EDGE_CASES), list(match_cases.PLAIN_ONLY)
+
+
+@pytest.mark.parametrize("ref", sorted(REFERENCES))
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_edge_cases_match_jax(case, ref):
+    p = _edge_problem(case)
+    ours = _port(p)
+    _assert_same(ours, REFERENCES[ref](p), p[0], p[1])
+    if case == "on_edge":  # the exact-r targets would change these rows
+        assert (ours[1] < BIG).any()
+
+
+@pytest.mark.parametrize("case", PLAIN_ONLY)
+def test_edge_cases_match_definition(case):
+    p = _edge_problem(case)
+    ours = _port(p)
+    _assert_same(ours, _numpy_ref(p), p[0], p[1])
+    if case != "no_targets":
+        assert (ours[1] < BIG).any()
+
+
+def _card_args(p):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return _port_args(p, "cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(match_cases.ALL_CASES))
+def test_kernel_matches_plain_on_edge_cases(case):
+    p = _edge_problem(case)
+    args = _card_args(p)
+    before = wm.launches
+    ours = tuple(x.cpu().numpy() for x in wm.window_match(*args))
+    assert wm.launches == before + 1
+    plain = tuple(x.cpu().numpy() for x in wm.window_match_plain(*args))
+    _assert_same(ours, plain, p[0], p[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["ties", "huge_r", "chunks"])
+def test_kernel_is_deterministic(case):
+    args = _card_args(_edge_problem(case))
+    first = torch.stack(wm.window_match(*args))
+    second = torch.stack(wm.window_match(*args))
+    assert torch.equal(first, second)
+
+
+@pytest.mark.gpu
+def test_kernel_takes_misaligned_views():
+    # descriptors and pixels as views 4 bytes into their buffers: the kernel
+    # stages such descriptors by 4-byte copies instead of 16-byte ones
+    p = _problem(13, N=300, M=500, radius=40.0)
+    args = list(_card_args(p))
+    for i in (5, 6):
+        buf = torch.empty(args[i].numel() + 1, dtype=args[i].dtype, device="cuda")
+        buf[1:] = args[i].flatten()
+        args[i] = buf[1:].view(args[i].shape)
+        assert args[i].data_ptr() % 16 != 0
+    ours = tuple(x.cpu().numpy() for x in wm.window_match(*args))
+    plain = tuple(x.cpu().numpy() for x in wm.window_match_plain(*args))
+    _assert_same(ours, plain, p[0], p[1])
+
+
+@pytest.mark.gpu
+def test_graph_replay_equals_eager():
+    args = _card_args(_caller_problem(14, "fuse", 4096, 1024))
+    eager = torch.stack(wm.window_match(*args))
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = wm.window_match(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(torch.stack(captured), eager)
