@@ -1,6 +1,6 @@
 """Run the PyTorch port on a CUDA card: the window-match kernel against
-its plain version, the per-frame tracking program, and monocular SLAM end
-to end.
+its plain version, the per-frame tracking program, and monocular, stereo
+and RGB-D SLAM end to end.
 
     python3 chip_smoke.py [--save-caller-inputs FILE]
 
@@ -23,13 +23,22 @@ two-view initialization, tracking, keyframes, local mapping with local BA,
 and the trajectory, checked against ground truth; then blank frames lose
 tracking, relocalization has to bring it back, and a frame rolled about
 the optical axis has to go through the reference-keyframe fallback. Phase
-4 records the window match's arguments of one call of each caller; after
-it, phase 1 holds the kernel against the plain version on them and times
-it there (`--save-caller-inputs` also writes them to FILE for
+5 drives `SLAM.track_stereo` over the same 120 poses with the right view of
+a rectified rig (EuRoC's bf), phase 6 `SLAM.track_rgbd` with the exact
+depth map: depth-seeded initialization on the first frame, tracking,
+keyframes with depth-spawned points, local mapping, and the metric
+trajectory (no scale fit). Phase 5 also holds the row matcher
+(`stereo_match`) and the RGB-D conversion on the card against the port on
+the CPU and times them; phase 6 does the same for the stereo rectification
+remap and CLAHE. Phases 4-6 each count the window match's launches from 0
+and record its arguments on one call of each caller; after them, phase 1
+holds the kernel against the plain version on those calls and times it
+there (`--save-caller-inputs` also writes them to FILE for
 `orb_slam3_comments_ghr_torch/utils/time_window_match.py`). Any failure
 raises. The last lines are the card's name and power limit, a JSON line of
-per-kernel results, and the JSON status line. Needs one CUDA card; exits
-non-zero without one.
+per-kernel results (with the launches and matcher calls of each path and
+the times of the plain stages), and the JSON status line. Needs one CUDA
+card; exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -187,16 +196,16 @@ def phase1_kernel(window_match_mod, matching_mod, device):
     return max_err, times
 
 
-def phase1_callers(window_match_mod, matching_mod, recorded, device):
+def phase1_callers(window_match_mod, matching_mod, recorded, device, callers):
     """The kernel against plain, and its times, on the arguments that
-    phase 4 recorded from each caller. Returns (max_abs_err, {caller:
-    times, bound and counts})."""
+    phases 4-6 recorded from each of `callers`. Returns (max_abs_err,
+    {caller: times, bound and counts})."""
     from orb_slam3_comments_ghr_torch.utils import time_window_match as twm
 
     max_err, out = 0, {}
-    for caller in RECORD_AT:
+    for caller in callers:
         if caller not in recorded:
-            raise AssertionError(f"phase 4 recorded no call of {caller}")
+            raise AssertionError(f"phases 4-6 recorded no call of {caller}")
         args = tuple(a.to(device) for a in recorded[caller])
         max_err = max(max_err, check_against_plain(window_match_mod, matching_mod, args,
                                                    f"recorded {caller}")[0])
@@ -361,18 +370,46 @@ def _count_calls(module, name: str, counts: dict, key: str, active: list):
 # 60th tracking call (a frame well after init, the map grown), every init
 # attempt (the last one kept: the attempt that initialized), the 40th fuse
 RECORD_AT = {"tracking": 60, "init": None, "fuse": 40}
+# the same in phases 5 and 6 (no two-view init there): the 60th tracking
+# call and the last fuse of the run
+RECORD_AT_DEPTH = {"tracking": 60, "fuse": None}
 
 
-def _recording(fn, calls: dict, active: list, recorded: dict):
-    """fn (window_match), keeping a device copy of its arguments on the
-    calls that RECORD_AT names, by the caller on top of `active`."""
+def _recording(fn, calls: dict, active: list, recorded: dict, record_at: dict, prefix: str):
+    """fn (window_match), keeping a device copy of its arguments, under
+    prefix + caller, on the calls that record_at names, by the caller on top
+    of `active`."""
     def recorded_fn(*args):
         key = active[-1] if active else None
-        if key in RECORD_AT and RECORD_AT[key] in (None, calls[key]):
-            recorded[key] = tuple(a.clone() for a in args)
+        if key in record_at and record_at[key] in (None, calls[key]):
+            recorded[prefix + key] = tuple(a.clone() for a in args)
         return fn(*args)
 
     return recorded_fn
+
+
+def _count_matchers(wm_mod, calls: dict, active: list, recorded: dict, record_at: dict,
+                    prefix: str = ""):
+    """Count the calls of the window match's three callers (tracking, init,
+    fuse) in `calls`, and record its arguments as `_recording` says.
+    Returns what to put back: (module, name, original) triples."""
+    from orb_slam3_comments_ghr_torch.ops import matching
+    from orb_slam3_comments_ghr_torch.pipeline import programs
+
+    originals = [
+        (programs, "track_against_points",
+         _count_calls(programs, "track_against_points", calls, "tracking", active)),
+        (matching, "search_for_initialization",
+         _count_calls(matching, "search_for_initialization", calls, "init", active)),
+        (programs, "fuse_project", _count_calls(programs, "fuse_project", calls, "fuse", active)),
+    ]
+    # where the callers look the window match up: programs' global, and the
+    # module attribute that search_for_initialization imports at each call
+    wm = wm_mod.window_match
+    for module in (programs, wm_mod):
+        originals.append((module, "window_match", module.window_match))
+        module.window_match = _recording(wm, calls, active, recorded, record_at, prefix)
+    return originals
 
 
 def phase4_slam(wm_mod, seq):
@@ -383,29 +420,16 @@ def phase4_slam(wm_mod, seq):
     window match launched once per matcher call on its three paths. Returns
     the launch count, the SLAM object and the recorded window-match
     arguments ({caller: args on the card})."""
-    from orb_slam3_comments_ghr_torch.ops import cameras, matching
-    from orb_slam3_comments_ghr_torch.pipeline import programs
+    from orb_slam3_comments_ghr_torch.ops import cameras
     from orb_slam3_comments_ghr_torch.system import SLAM
     from orb_slam3_comments_ghr_torch.utils import evaluation, synthetic
     from orb_slam3_comments_ghr_torch.utils.config import SlamConfig
 
     frames, _, poses = seq
-    wm = wm_mod.window_match
     slam = SLAM(cameras.euroc_cam0(), SlamConfig(enable_loop_closing=False), device="cuda")
     calls = {"tracking": 0, "init": 0, "fuse": 0}
     active, recorded = [], {}
-    originals = [
-        (programs, "track_against_points",
-         _count_calls(programs, "track_against_points", calls, "tracking", active)),
-        (matching, "search_for_initialization",
-         _count_calls(matching, "search_for_initialization", calls, "init", active)),
-        (programs, "fuse_project", _count_calls(programs, "fuse_project", calls, "fuse", active)),
-    ]
-    # where the callers look the window match up: programs' global, and the
-    # module attribute that search_for_initialization imports at each call
-    for module in (programs, wm_mod):
-        originals.append((module, "window_match", module.window_match))
-        module.window_match = _recording(wm, calls, active, recorded)
+    originals = _count_matchers(wm_mod, calls, active, recorded, RECORD_AT)
     kf_ms = []
     process_keyframe = slam.mapper.process_keyframe
 
@@ -461,7 +485,7 @@ def phase4_slam(wm_mod, seq):
         raise AssertionError("phase4: the init or the fuse path never ran")
     if launches != sum(calls.values()):
         raise AssertionError(f"phase4: {launches} launches for {sum(calls.values())} matcher calls")
-    return launches, slam, recorded
+    return launches, calls, slam, recorded
 
 
 LOST_BLANK_FRAMES = 3
@@ -505,8 +529,7 @@ def phase4_lost_and_back(wm_mod, slam, seq):
     >= 90 % of the returned frames are tracked, the Sim(3)-aligned ATE of the
     whole trajectory stays under 5 cm, and the window match launched once
     per matcher call in this window. Returns the launch count."""
-    from orb_slam3_comments_ghr_torch.ops import cameras, matching
-    from orb_slam3_comments_ghr_torch.pipeline import programs
+    from orb_slam3_comments_ghr_torch.ops import cameras
     from orb_slam3_comments_ghr_torch.utils import evaluation, synthetic
 
     frames, scene, poses = seq
@@ -519,13 +542,7 @@ def phase4_lost_and_back(wm_mod, slam, seq):
     gt_poses = list(poses[:PHASE4_FRAMES]) + [poses[PHASE4_FRAMES - 1]] * LOST_BLANK_FRAMES \
         + back_poses
     calls, active = {"tracking": 0, "init": 0, "fuse": 0}, []
-    originals = [
-        (programs, "track_against_points",
-         _count_calls(programs, "track_against_points", calls, "tracking", active)),
-        (matching, "search_for_initialization",
-         _count_calls(matching, "search_for_initialization", calls, "init", active)),
-        (programs, "fuse_project", _count_calls(programs, "fuse_project", calls, "fuse", active)),
-    ]
+    originals = _count_matchers(wm_mod, calls, active, {}, {})
     outcomes = {}
     for name in ("_relocalize", "_track_reference_kf"):
         _count_outcomes(slam.tracker, name, outcomes)
@@ -576,7 +593,228 @@ def phase4_lost_and_back(wm_mod, slam, seq):
     if launches != sum(calls.values()):
         raise AssertionError(f"phase4 lost-and-back: {launches} launches for "
                              f"{sum(calls.values())} matcher calls")
-    return launches
+    return launches, calls
+
+
+PHASE5_FRAMES = 120
+# metric ATE bars (no scale fit) of tests/test_stereo.py and tests/test_rgbd.py
+ATE_BAR = {"stereo": 0.06, "rgbd": 0.08}
+
+
+def second_inputs(seq, mode: str) -> list:
+    """Per frame the second input of `track_stereo` (the right view: a
+    rectified rig, the camera b to the right, t_r = t - [b, 0, 0]) or of
+    `track_rgbd` (the exact depth map)."""
+    from orb_slam3_comments_ghr_torch.ops import cameras
+    from orb_slam3_comments_ghr_torch.utils import synthetic
+
+    cam = cameras.euroc_cam0()
+    _, scene, poses = seq
+    if mode == "rgbd":
+        return [synthetic.depth_map(scene, cam, *poses[i]) for i in range(PHASE5_FRAMES)]
+    b = np.array([cam.bf / cam.fx, 0.0, 0.0], np.float32)
+    return [np.clip(np.round(synthetic.render_image(scene, cam, poses[i][0], poses[i][1] - b)),
+                    0, 255).astype(np.uint8) for i in range(PHASE5_FRAMES)]
+
+
+def phase_depth_slam(wm_mod, seq, second, mode: str):
+    """`SLAM.track_stereo` (phase 5) or `SLAM.track_rgbd` (phase 6) over
+    frames 0..119 (20 Hz timestamps) at the default, full-width
+    configuration, loop closing off. Fails unless the run initializes on
+    frame 0, tracks >= 90 % of the frames, ends with >= 3 keyframes and a
+    metric ATE (no scale fit) under ATE_BAR, never calls the two-view init,
+    and the window match launched once per tracking and fuse call. Returns
+    (launches, the matcher calls, the recorded window-match arguments, the
+    SLAM object)."""
+    from orb_slam3_comments_ghr_torch.ops import cameras
+    from orb_slam3_comments_ghr_torch.system import SLAM
+    from orb_slam3_comments_ghr_torch.utils import config, evaluation, synthetic
+
+    frames, _, poses = seq
+    sensor = config.STEREO if mode == "stereo" else config.RGBD
+    slam = SLAM(cameras.euroc_cam0(), config.SlamConfig(sensor=sensor, enable_loop_closing=False),
+                device="cuda")
+    track = slam.track_stereo if mode == "stereo" else slam.track_rgbd
+    calls = {"tracking": 0, "init": 0, "fuse": 0}
+    active, recorded = [], {}
+    originals = _count_matchers(wm_mod, calls, active, recorded, RECORD_AT_DEPTH, mode + " ")
+    kf_ms = []
+    process_keyframe = slam.mapper.process_keyframe
+    slam.mapper.process_keyframe = lambda kf: kf_ms.append(host_ms(lambda: process_keyframe(kf)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wm_mod.launches = 0
+    try:
+        tracked, plain_frame_ms, init_frame, local_rows = [], [], None, []
+        for i in range(PHASE5_FRAMES):
+            box = {}
+            frame_ms = host_ms(lambda: box.update(pose=track(frames[i], second[i], i * 0.05)))
+            if box["pose"] is not None:
+                if not np.isfinite(box["pose"]).all():
+                    raise AssertionError(f"{mode} frame {i}: non-finite pose")
+                init_frame = i if init_frame is None else init_frame
+                tracked.append(i)
+            if init_frame is not None and i > init_frame and slam.tracker.pending_kf is None:
+                plain_frame_ms.append(frame_ms)
+            if slam.tracker._lp_cache is not None:
+                local_rows.append(len(slam.tracker._lp_cache[2]))
+        torch.cuda.synchronize()
+        launches = wm_mod.launches
+    finally:
+        for module, name, fn in originals:
+            setattr(module, name, fn)
+        del slam.mapper.process_keyframe
+    peak = torch.cuda.max_memory_allocated()
+    gt = synthetic.gt_trajectory(poses[:PHASE5_FRAMES])
+    ate = evaluation.ate_rmse(slam.trajectory(), gt, with_scale=False)
+    rec = recorded.get(mode + " tracking")
+    searching = int((rec[2] > 0).sum()) if rec is not None else -1
+    tag = f"phase{5 if mode == 'stereo' else 6} {mode}"
+    print(f"{tag} {PHASE5_FRAMES} frames: initialized at frame {init_frame}, tracked "
+          f"{len(tracked)}/{PHASE5_FRAMES}, keyframes {slam.n_keyframes()}, map points "
+          f"{slam.n_map_points()}, metric ATE (no scale fit) {ate * 1e3:.3f} mm")
+    print(f"{tag} local map rows (valid points of {slam.cfg.local_points_cap}) median "
+          f"{np.median(local_rows):.0f}, max {max(local_rows)}; searching rows at the recorded "
+          f"tracking call {searching}")
+    print(f"{tag} window_match launches {launches}; matcher calls tracking {calls['tracking']}, "
+          f"init {calls['init']}, fuse {calls['fuse']}")
+    print(f"{tag} track_{mode} ms on {len(plain_frame_ms)} frames without a keyframe (median / "
+          f"p75): {np.median(plain_frame_ms):.3f} / {np.percentile(plain_frame_ms, 75):.3f}; "
+          f"process_keyframe ms over {len(kf_ms)} keyframes (median / max): "
+          f"{np.median(kf_ms):.3f} / {max(kf_ms):.3f}; max_memory_allocated {peak / 2**20:.1f} MiB")
+    if init_frame != 0:
+        raise AssertionError(f"{tag}: initialized at frame {init_frame}, not 0")
+    if len(tracked) < 0.9 * PHASE5_FRAMES:
+        raise AssertionError(f"{tag}: tracked {len(tracked)} of {PHASE5_FRAMES} frames (< 90 %)")
+    if slam.n_keyframes() < 3:
+        raise AssertionError(f"{tag}: {slam.n_keyframes()} keyframes (< 3)")
+    if not ate < ATE_BAR[mode]:
+        raise AssertionError(f"{tag}: metric ATE {ate:.4f} m >= {ATE_BAR[mode]} m")
+    if calls["init"] != 0 or calls["fuse"] == 0:
+        raise AssertionError(f"{tag}: the two-view init ran, or the fuse never did")
+    if launches != calls["tracking"] + calls["fuse"]:
+        raise AssertionError(f"{tag}: {launches} launches for {calls['tracking']} tracking and "
+                             f"{calls['fuse']} fuse calls")
+    return launches, calls, recorded, slam
+
+
+def device_ms(fn, calls: int = 10) -> float:
+    """Device milliseconds per call of fn(): the kernels and copies of
+    `calls` calls under torch.profiler (one stream: they do not overlap),
+    after a warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    us = sum(e.time_range.elapsed_us() for e in prof.events() if e.device_type == cuda)
+    if us <= 0:
+        raise AssertionError("torch.profiler recorded no device time")
+    return us / 1e3 / calls
+
+
+def stage_times(label: str, fn) -> dict:
+    """Host ms (median of 20 calls, each ending in a sync) and device ms
+    per call of fn, printed and returned."""
+    t = {"host_ms": float(np.median([host_ms(fn) for _ in range(20)])), "device_ms": device_ms(fn)}
+    print(f"  {label}: host {t['host_ms']:.3f} ms per call (median of 20, synchronized), device "
+          f"{t['device_ms']:.4f} ms per call (torch.profiler, 10 calls)")
+    return t
+
+
+def depth_stages_against_cpu(device, seq, right, depth, slam):
+    """On frame 60: `stereo_match` and `depth_to_stereo` on the card against
+    the port on the CPU with the same features and images (matched set and
+    u_right equal to 1e-3 px, depth to 1e-5 relative), and their times on
+    the card; then what the stereo observations cost the tracking program:
+    `track_against_points` on phase 5's last local map and pose with the
+    frame's stereo features and with the same features as monocular
+    (u_right -1), in turns. Returns {stage: times}."""
+    from orb_slam3_comments_ghr_torch.frontend import stereo
+    from orb_slam3_comments_ghr_torch.frontend.batched import extract_batched
+    from orb_slam3_comments_ghr_torch.ops import cameras
+
+    cam = cameras.euroc_cam0()
+    cpu = torch.device("cpu")
+    frames, _, _ = seq
+    gl, gr = (torch.from_numpy(a).to(device) for a in (frames[60], right[60]))
+    fl, fr = extract_batched(gl), extract_batched(gr)
+    il, ir = gl.to(torch.float32), gr.to(torch.float32)
+    dmap = torch.from_numpy(depth[60]).to(device)
+    on_cpu = lambda feats: type(feats)(*(x.to(cpu) for x in feats))
+    out = {}
+    for name, card, host in (
+            ("stereo_match", lambda: stereo.stereo_match(cam, fl, fr, il, ir),
+             lambda: stereo.stereo_match(cam, on_cpu(fl), on_cpu(fr), il.cpu(), ir.cpu())),
+            ("depth_to_stereo", lambda: stereo.depth_to_stereo(cam, fl, dmap),
+             lambda: stereo.depth_to_stereo(cam, on_cpu(fl), dmap.cpu()))):
+        (ur_g, d_g), (ur_c, d_c) = card(), host()
+        ur_g, d_g = ur_g.cpu(), d_g.cpu()
+        ok = ur_c >= 0
+        du = float((ur_g - ur_c)[ok].abs().max()) if bool(ok.any()) else 0.0
+        dd = float(((d_g - d_c) / d_c)[ok].abs().max()) if bool(ok.any()) else 0.0
+        print(f"phase5 {name} card vs cpu on frame 60: matched {int((ur_g >= 0).sum())} vs "
+              f"{int(ok.sum())}, max |du_right| {du:.2e} px, max relative depth difference {dd:.2e}")
+        if not torch.equal(ur_g >= 0, ok) or du > 1e-3 or dd > 1e-5:
+            raise AssertionError(f"{name}: the card disagrees with the CPU port")
+        out[name] = stage_times(name, card)
+
+    from orb_slam3_comments_ghr_torch.pipeline import programs
+
+    lp, _ = slam.tracker._local_points_view()
+    R, t = (torch.from_numpy(a).to(device) for a in (slam.tracker.last_R, slam.tracker.last_t))
+    ur, d = stereo.stereo_match(cam, fl, fr, il, ir)
+    feats = {"stereo": fl._replace(u_right=ur, depth=d),
+             "as mono": fl._replace(u_right=torch.full_like(ur, -1.0))}
+    ms = {k: [] for k in feats}
+    for k in ("stereo", "as mono", "as mono", "stereo") * 5:
+        ms[k].append(host_ms(lambda: programs.track_against_points(cam, feats[k], lp, R, t)))
+    for k, v in ms.items():
+        out[f"track_against_points {k}"] = {"host_ms": float(np.median(v)),
+                                            "device_ms": device_ms(lambda: programs.track_against_points(
+                                                cam, feats[k], lp, R, t))}
+    print("phase5 track_against_points on the last local map, host ms (median of 10, in turns) / "
+          "device ms: " + ", ".join(f"{k} {out[f'track_against_points {k}']['host_ms']:.3f} / "
+                                     f"{out[f'track_against_points {k}']['device_ms']:.3f}"
+                                     for k in feats))
+    return out
+
+
+# EuRoC MH cam0 / cam1 raw calibration (sensor.yaml) and an extrinsic close
+# to the real rig's (T_c1_c2: ~11 cm along x)
+EUROC_RAW = (
+    dict(fx=458.654, fy=457.296, cx=367.215, cy=248.375,
+         k1=-0.28340811, k2=0.07395907, p1=0.00019359, p2=1.76187114e-05),
+    dict(fx=457.587, fy=456.134, cx=379.999, cy=255.238,
+         k1=-0.28368365, k2=0.07451284, p1=-0.00010473, p2=-3.55590700e-05),
+)
+
+
+def rectify_clahe_against_cpu(device, seq, right):
+    """Stereo rectification (the EuRoC rig's maps) and CLAHE of frame 60 on
+    the card against the port on the CPU: equal to 1e-3 grey levels (the
+    card contracts products and sums into fused multiply-adds). Returns
+    {stage: times}."""
+    from orb_slam3_comments_ghr_torch.frontend.clahe import clahe
+    from orb_slam3_comments_ghr_torch.io import rectify
+    from orb_slam3_comments_ghr_torch.ops import lie
+
+    R12 = lie.so3_exp(torch.tensor([0.003, -0.002, 0.001])).numpy()
+    rig = rectify.build_rectifier(*EUROC_RAW, R12, np.array([0.1101, -0.0002, 0.0003]), 752, 480)
+    img_l, img_r = seq[0][60], right[60]
+    gl, gr = (torch.from_numpy(a).to(device) for a in (img_l, img_r))
+    out = {}
+    for name, card, host in (
+            ("rectify", lambda: rig.rectify(gl, gr), lambda: rig.rectify(img_l, img_r, device="cpu")),
+            ("clahe", lambda: (clahe(gl),), lambda: (clahe(torch.from_numpy(img_l)),))):
+        diff = max(float((g.cpu() - c).abs().max()) for g, c in zip(card(), host()))
+        print(f"phase6 {name} card vs cpu on frame 60: max |difference| {diff:.2e} grey levels")
+        if diff > 1e-3:
+            raise AssertionError(f"{name}: the card disagrees with the CPU port")
+        out[name] = stage_times(name, card)
+    return out
 
 
 def main(argv=None) -> int:
@@ -609,13 +847,33 @@ def main(argv=None) -> int:
     phase3_against_cpu(device, frame, pts, seq[2][0])
     print("phase3 passed")
     t0 = time.perf_counter()
-    launches, slam, recorded = phase4_slam(window_match, seq)
-    phase4_lost_and_back(window_match, slam, seq)
+    launches, calls, slam, recorded = phase4_slam(window_match, seq)
+    paths = {"mono": dict(calls, launches=launches)}
+    lb_launches, lb_calls = phase4_lost_and_back(window_match, slam, seq)
+    paths["mono lost-and-back"] = dict(lb_calls, launches=lb_launches)
     print(f"phase4 passed in {time.perf_counter() - t0:.1f} s")
+    del slam
+
+    t0 = time.perf_counter()
+    right, depth = second_inputs(seq, "stereo"), second_inputs(seq, "rgbd")
+    print(f"rendered {PHASE5_FRAMES} right views and depth maps in {time.perf_counter() - t0:.1f} s")
+    stages = {}
+    for mode, second in (("stereo", right), ("rgbd", depth)):
+        t0 = time.perf_counter()
+        n, calls, rec, slam = phase_depth_slam(window_match, seq, second, mode)
+        paths[mode] = dict(calls, launches=n)
+        recorded.update(rec)
+        if mode == "stereo":
+            stages.update(depth_stages_against_cpu(device, seq, right, depth, slam))
+        else:
+            stages.update(rectify_clahe_against_cpu(device, seq, right))
+        print(f"phase{5 if mode == 'stereo' else 6} passed in {time.perf_counter() - t0:.1f} s")
     if opts.save_caller_inputs:
         torch.save({k: tuple(a.cpu() for a in v) for k, v in recorded.items()},
                    opts.save_caller_inputs)
-    err, callers = phase1_callers(window_match, matching, recorded, device)
+    err, callers = phase1_callers(window_match, matching, recorded, device,
+                                  [*RECORD_AT, *(f"{m} {c}" for m in ("stereo", "rgbd")
+                                                 for c in RECORD_AT_DEPTH)])
     max_err = max(max_err, err)
     print("phase1 on the recorded caller inputs passed")
 
@@ -625,12 +883,14 @@ def main(argv=None) -> int:
         "name": "window_match", "route": "cuda",
         "source": "orb_slam3_comments_ghr_torch/csrc/window_match.cu",
         "replaces": "orb_slam3_comments_ghr_tpu/ops/pallas_match.py:88",
-        "launches": launches, "max_abs_err": max_err,
-        # device time per launch on the recorded tracking call (CUDA graph)
+        # launches over the main runs of phases 4, 5 and 6, each counted from 0
+        "launches": sum(paths[p]["launches"] for p in ("mono", "stereo", "rgbd")),
+        "max_abs_err": max_err,
+        # device time per launch on the recorded mono tracking call (CUDA graph)
         "ms": track["device_ms"], "plain_ms": track["plain_ms"],
         "bound_ms": track["bound_ms"], "bound_by": track["bound_by"], "library_ms": None,
-        "callers": callers, "random_4096x1024_r80": synthetic_times,
-    }]}))
+        "paths": paths, "callers": callers, "random_4096x1024_r80": synthetic_times,
+    }], "plain_stages": stages}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,8 +1,8 @@
 """Pinhole camera model.
 
 Port of the pinhole part of `orb_slam3_comments_ghr_tpu/ops/cameras.py`.
-The Kannala-Brandt fisheye model is not ported yet: `project` and
-`project_jac` raise for it.
+The Kannala-Brandt fisheye model is not ported yet: `project`,
+`project_jac` and `unproject` raise for it.
 """
 
 from __future__ import annotations
@@ -33,6 +33,11 @@ class Camera:
     height: int = 480
     bf: float = 0.0
     fps: float = 20.0
+
+    @property
+    def baseline(self) -> float:
+        """Stereo baseline in metres (bf / fx), 0 for a monocular camera."""
+        return self.bf / self.fx if self.bf > 0 else 0.0
 
 
 def camera_matrix(cam: Camera, device=None) -> torch.Tensor:
@@ -71,6 +76,14 @@ def project_jac(cam: Camera, pc: torch.Tensor) -> torch.Tensor:
     row_u = torch.stack([cam.fx * inv_z, zero, -cam.fx * x * inv_z2], dim=-1)
     row_v = torch.stack([zero, cam.fy * inv_z, -cam.fy * y * inv_z2], dim=-1)
     return torch.stack([row_u, row_v], dim=-2)
+
+
+def unproject(cam: Camera, uv: torch.Tensor) -> torch.Tensor:
+    """Pixel (...,2) -> bearing (...,3) with z = 1."""
+    _require_pinhole(cam)
+    mx = (uv[..., 0] - cam.cx) / cam.fx
+    my = (uv[..., 1] - cam.cy) / cam.fy
+    return torch.stack([mx, my, torch.ones_like(mx)], dim=-1)
 
 
 def in_image(cam: Camera, uv: torch.Tensor, margin: float = 0.0) -> torch.Tensor:

@@ -1,11 +1,13 @@
-"""The per-frame monocular tracking program and the mapper's programs.
+"""The per-frame tracking programs and the mapper's programs.
 
-Port of `orb_slam3_comments_ghr_tpu/pipeline/programs.py`, monocular part:
+Port of `orb_slam3_comments_ghr_tpu/pipeline/programs.py`, monocular and
+rectified-stereo parts:
 - per frame: ORB extraction, then frustum gate, windowed Hamming top-2 with
   ratio test, duplicate resolution, rotation histogram and the 4-round Huber
   pose LM (Tracking.cc TrackLocalMap / SearchByProjection /
   PoseOptimization): `extract_only`, `track_against_points`,
-  `extract_and_track`;
+  `extract_and_track`; for a stereo pair both extractions and the row
+  matcher come first (`extract_stereo_only`, `extract_and_track_stereo`);
 - per keyframe: epipolar matching and triangulation against the covisible
   neighbours (`map_new_points_multi`) and the projection fuse into them
   (`fuse_project_multi`).
@@ -23,6 +25,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..frontend import stereo
 from ..frontend.batched import extract_batched
 from ..ops import cameras, lie, matching, triangulate
 from ..ops.window_match import window_match
@@ -166,6 +169,58 @@ def extract_and_track(
     )
     res = track_against_points(geom_cam, feats, pts, R0, t0, th=th, n_levels=n_levels, scale=scale)
     return feats, res
+
+
+def extract_stereo_only(
+    extract_cam: cameras.Camera,
+    img_l: torch.Tensor,
+    img_r: torch.Tensor,
+    n_features: int = 1024,
+    n_levels: int = 8,
+    scale: float = 1.2,
+    ini_th: float = 20.0,
+    min_th: float = 7.0,
+    undistort: bool = False,
+):
+    """Extraction half of the stereo per-frame program: both extractions
+    (the reference runs them on two threads, Frame.cc stereo constructor),
+    then the row matcher, which fills the left features' u_right and depth.
+    `undistort` (fisheye) is not ported yet and must be False."""
+    if undistort:
+        raise NotImplementedError("fisheye undistortion is not ported yet")
+    kw = dict(n_features=n_features, n_levels=n_levels, scale=scale, ini_th=ini_th, min_th=min_th)
+    fl = extract_batched(img_l, **kw)
+    fr = extract_batched(img_r, **kw)
+    u_right, depth = stereo.stereo_match(extract_cam, fl, fr, img_l.to(torch.float32),
+                                         img_r.to(torch.float32), scale=scale)
+    return fl._replace(u_right=u_right, depth=depth)
+
+
+def extract_and_track_stereo(
+    extract_cam: cameras.Camera,
+    geom_cam: cameras.Camera,
+    img_l: torch.Tensor,
+    img_r: torch.Tensor,
+    pts: LocalPoints,
+    R0: torch.Tensor,
+    t0: torch.Tensor,
+    n_features: int = 1024,
+    n_levels: int = 8,
+    scale: float = 1.2,
+    ini_th: float = 20.0,
+    min_th: float = 7.0,
+    th: float = 1.0,
+    undistort: bool = False,
+):
+    """The stereo per-frame program: both extractions, the row matcher,
+    then projection matching and the pose LM, with no host sync between.
+    Returns (left Features, TrackResult)."""
+    fl = extract_stereo_only(
+        extract_cam, img_l, img_r, n_features=n_features, n_levels=n_levels, scale=scale,
+        ini_th=ini_th, min_th=min_th, undistort=undistort,
+    )
+    res = track_against_points(geom_cam, fl, pts, R0, t0, th=th, n_levels=n_levels, scale=scale)
+    return fl, res
 
 
 def epipolar_match(cam: cameras.Camera, desc1, xy1, level1, free1,

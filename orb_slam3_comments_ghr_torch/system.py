@@ -1,16 +1,17 @@
-"""Public SLAM system facade, monocular visual path.
+"""Public SLAM system facade, visual path.
 
 Port of `orb_slam3_comments_ghr_tpu/system.py` (ORB_SLAM3::System,
 reference include/System.h:104-195): construct with a camera + config, feed
-frames with `track_monocular` (or features with `track_features`), query
-the state, export trajectories. Tracking runs inline per frame and local
-mapping inline per keyframe.
+frames with `track_monocular`, `track_stereo` (a rectified pair) or
+`track_rgbd` (an image and its depth map), or features with
+`track_features`; query the state, export trajectories. Tracking runs
+inline per frame and local mapping inline per keyframe.
 
 The system runs on one device: the card (`torch.device("cuda")`) unless the
 caller passes `device="cpu"`. The per-frame and per-keyframe programs run
 there; the map stays host numpy. Not ported yet, and refused with
 NotImplementedError: loop closing (ROADMAP A6), asynchronous mapping,
-inertial (A5), stereo and RGB-D (A4), fisheye (A7) and atlas files.
+inertial sensors (A5), fisheye (A7) and atlas files.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .frontend import stereo
 from .map.state import MapConfig, MapState
 from .ops import cameras, lie
 from .pipeline import programs
@@ -28,7 +30,7 @@ from .pipeline.mapper import LocalMapper
 from .pipeline.tracker import NOT_INITIALIZED, STATE_NAMES, Tracker
 from .retrieval.database import KeyFrameDatabase
 from .retrieval.vocabulary import Vocabulary
-from .utils.config import MONOCULAR, SlamConfig
+from .utils.config import SlamConfig
 from .utils.device import resolve_device
 
 
@@ -40,8 +42,6 @@ def _check_supported(cam: cameras.Camera, cfg: SlamConfig):
         raise NotImplementedError("asynchronous mapping is not ported yet: set async_mapping=False")
     if cfg.is_inertial:
         raise NotImplementedError("inertial sensors are not ported yet (ROADMAP A5)")
-    if cfg.sensor != MONOCULAR:
-        raise NotImplementedError("stereo and RGB-D are not ported yet (ROADMAP A4)")
     if cam.kind != cameras.PINHOLE:
         raise NotImplementedError("the fisheye camera model is not ported yet (ROADMAP A7)")
 
@@ -89,19 +89,59 @@ class SLAM:
         4x4 Tcw or None (System::TrackMonocular, System.h:120)."""
         if imu_samples is not None:
             raise NotImplementedError("inertial sensors are not ported yet (ROADMAP A5)")
-        img = (img if torch.is_tensor(img) else torch.from_numpy(np.asarray(img))).to(self.device)
-        ready, lp, _, R0, t0 = self.tracker.prepare_frame(timestamp)
-        if not ready:
-            lp = self._dummy_local_points()
-            R0 = torch.eye(3, device=self.device)
-            t0 = torch.zeros(3, device=self.device)
+        ready, lp, R0, t0, th = self._prepare(timestamp)
         feats, res = programs.extract_and_track(
-            self.cam, self.geom_cam, img, lp, R0, t0,
+            self.cam, self.geom_cam, self._upload(img), lp, R0, t0,
             n_features=self.cfg.n_features, n_levels=self.cfg.n_levels,
             scale=self.cfg.scale_factor, ini_th=self.cfg.ini_th_fast,
-            min_th=self.cfg.min_th_fast, th=self.tracker._prepared_th if ready else 1.0,
+            min_th=self.cfg.min_th_fast, th=th,
         )
         return self.track_features(feats, timestamp, precomputed=(res,) if ready else None)
+
+    def track_stereo(self, img_left, img_right, timestamp: float,
+                     imu_samples=None) -> Optional[np.ndarray]:
+        """A rectified stereo pair of (H,W) grayscale arrays or tensors.
+        Returns 4x4 Tcw or None (System::TrackStereo, System.h:109)."""
+        if imu_samples is not None:
+            raise NotImplementedError("inertial sensors are not ported yet (ROADMAP A5)")
+        ready, lp, R0, t0, th = self._prepare(timestamp)
+        feats, res = programs.extract_and_track_stereo(
+            self.cam, self.geom_cam, self._upload(img_left), self._upload(img_right), lp, R0, t0,
+            n_features=self.cfg.n_features, n_levels=self.cfg.n_levels,
+            scale=self.cfg.scale_factor, ini_th=self.cfg.ini_th_fast,
+            min_th=self.cfg.min_th_fast, th=th,
+        )
+        return self.track_features(feats, timestamp, precomputed=(res,) if ready else None)
+
+    def track_rgbd(self, img, depth_map, timestamp: float,
+                   imu_samples=None) -> Optional[np.ndarray]:
+        """An (H,W) grayscale image and its (H,W) metric depth map (0 where
+        unknown). Returns 4x4 Tcw or None (System::TrackRGBD, System.h:114).
+        Extraction with the virtual right coordinates is one dispatch,
+        tracking (in `track_features`) the second."""
+        if imu_samples is not None:
+            raise NotImplementedError("inertial sensors are not ported yet (ROADMAP A5)")
+        feats = programs.extract_only(
+            self.cam, self._upload(img), n_features=self.cfg.n_features,
+            n_levels=self.cfg.n_levels, scale=self.cfg.scale_factor,
+            ini_th=self.cfg.ini_th_fast, min_th=self.cfg.min_th_fast,
+        )
+        u_right, depth = stereo.depth_to_stereo(self.cam, feats, self._upload(depth_map))
+        return self.track_features(feats._replace(u_right=u_right, depth=depth), timestamp)
+
+    def _prepare(self, timestamp: float):
+        """(ready, local points, R0, t0, search-window multiplier) for the
+        fused per-frame program; on init and relocalization frames (not
+        ready) the empty view and the identity, so that its track half finds
+        nothing."""
+        ready, lp, _, R0, t0 = self.tracker.prepare_frame(timestamp)
+        if ready:
+            return True, lp, R0, t0, self.tracker._prepared_th
+        eye, zero = torch.eye(3, device=self.device), torch.zeros(3, device=self.device)
+        return False, self._dummy_local_points(), eye, zero, 1.0
+
+    def _upload(self, a) -> torch.Tensor:
+        return (a if torch.is_tensor(a) else torch.from_numpy(np.asarray(a))).to(self.device)
 
     def track_features(self, feats, timestamp: float, precomputed=None):
         """Entry point for features produced elsewhere (tests, other front

@@ -1,17 +1,22 @@
-"""Where the time of monocular SLAM goes on a CUDA card.
+"""Where the time of monocular, stereo or RGB-D SLAM goes on a CUDA card.
 
-    python -m orb_slam3_comments_ghr_torch.utils.profile_slam [--frames 120] [--warmup 10]
+    python -m orb_slam3_comments_ghr_torch.utils.profile_slam \
+        [--sensor mono|stereo|rgbd] [--frames 120] [--warmup 10]
 
-Drives `SLAM.track_monocular` over the `chip_smoke.py` phase-4 sequence
-(`make_textured_scene(7)`, `circular_trajectory(300)`, 20 Hz, default
-full-width config, loop closing off); every frame after the first
+Drives `SLAM.track_monocular` (or `track_stereo` on rectified pairs, or
+`track_rgbd` with the exact depth map) over the `chip_smoke.py` sequence of
+phases 4-6 (`make_textured_scene(7)`, `circular_trajectory(300)`, 20 Hz,
+default full-width config, loop closing off); every frame after the first
 `--warmup` (which cover initialization) runs under `torch.profiler`. For
-the per-frame program (`programs.extract_and_track`), the tracker's host
-bookkeeping after it (`Tracker.track`: result fetch, map statistics,
-keyframe insertion) and the five stages of `LocalMapper.process_keyframe`
-it prints the calls, the host milliseconds (each call ending in a device
-sync; inflated by the profiler's host cost) and the device milliseconds of
-the kernels and copies each launched. Then, for the whole profiled run:
+the per-frame call, its stages (`extract_batched`, once per image;
+`stereo_match` or `depth_to_stereo`; `track_against_points`), the
+tracker's host bookkeeping (`Tracker.track`: result fetch, map statistics,
+keyframe insertion; for RGB-D it also runs the tracking) and the five
+stages of `LocalMapper.process_keyframe` it prints the calls, the host
+milliseconds (each call ending in a device sync; inflated by the
+profiler's host cost) and the device milliseconds of the kernels and
+copies each launched (a stage's device time includes the stages inside
+it). Then, for the whole profiled run:
 device busy time (one stream, so kernels do not overlap), kernel and copy
 count, the device idle share (1 - busy / wall, the wall inflated by the
 profiler), the window-match kernel's launches and device time, and the
@@ -51,31 +56,46 @@ def _timed(obj, name: str, times: dict, key: str):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--sensor", choices=("mono", "stereo", "rgbd"), default="mono")
     ap.add_argument("--frames", type=int, default=120)
     ap.add_argument("--warmup", type=int, default=10, help="frames run before profiling")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_slam needs a CUDA card")
+    from ..frontend import stereo
     from ..ops import cameras
     from ..pipeline import programs
     from ..system import SLAM
-    from . import synthetic
-    from .config import SlamConfig
+    from . import config, synthetic
 
     cam = cameras.euroc_cam0()
     scene = synthetic.make_textured_scene(7)
-    poses = synthetic.circular_trajectory(300)
-    frames = [np.clip(np.round(synthetic.render_image(scene, cam, *poses[i])), 0, 255).astype(np.uint8)
-              for i in range(args.frames)]
-    slam = SLAM(cam, SlamConfig(enable_loop_closing=False), device="cuda")
+    poses = synthetic.circular_trajectory(300)[:args.frames]
+    u8 = lambda img: np.clip(np.round(img), 0, 255).astype(np.uint8)
+    frames = [u8(synthetic.render_image(scene, cam, *p)) for p in poses]
+    b = np.array([cam.bf / cam.fx, 0.0, 0.0], np.float32)
+    if args.sensor == "stereo":
+        second = [u8(synthetic.render_image(scene, cam, R, t - b)) for R, t in poses]
+    elif args.sensor == "rgbd":
+        second = [synthetic.depth_map(scene, cam, *p) for p in poses]
+    sensor = {"mono": config.MONOCULAR, "stereo": config.STEREO, "rgbd": config.RGBD}[args.sensor]
+    slam = SLAM(cam, config.SlamConfig(sensor=sensor, enable_loop_closing=False), device="cuda")
+    method = f"track_{'monocular' if args.sensor == 'mono' else args.sensor}"
     times = collections.defaultdict(list)
-    _timed(programs, "extract_and_track", times, "extract_and_track")
+    _timed(slam, method, times, f"SLAM.{method}")
+    track = getattr(slam, method)
+    step = ((lambda i: track(frames[i], i * 0.05)) if args.sensor == "mono"
+            else (lambda i: track(frames[i], second[i], i * 0.05)))
+    _timed(programs, "extract_batched", times, "extract_batched")
+    _timed(stereo, "stereo_match", times, "stereo_match")
+    _timed(stereo, "depth_to_stereo", times, "depth_to_stereo")
+    _timed(programs, "track_against_points", times, "track_against_points")
     _timed(slam.tracker, "track", times, "tracker.track (host bookkeeping)")
     for stage in MAPPER_STAGES:
         _timed(slam.mapper, stage, times, f"mapper.{stage}")
 
     for i in range(args.warmup):
-        slam.track_monocular(frames[i], i * 0.05)
+        step(i)
     torch.cuda.synchronize()
     for v in times.values():
         v.clear()
@@ -83,7 +103,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     with torch.profiler.profile(activities=activities) as prof:
         for i in range(args.warmup, args.frames):
-            slam.track_monocular(frames[i], i * 0.05)
+            step(i)
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
 
@@ -93,7 +113,7 @@ def main(argv=None) -> int:
         if e.name in times and e.device_type == torch.autograd.DeviceType.CPU:
             device_ms[e.name] += e.device_time_total / 1e3
     print(torch.cuda.get_device_name(0))
-    print(f"frames {args.warmup}-{args.frames - 1} profiled; keyframes {slam.n_keyframes()}, "
+    print(f"{args.sensor}: frames {args.warmup}-{args.frames - 1} profiled; keyframes {slam.n_keyframes()}, "
           f"map points {slam.n_map_points()}")
     for key, v in times.items():
         if not v:

@@ -199,11 +199,13 @@ def make_world(seed: int, n_points: int = 4000, extent=(20.0, 12.0, 8.0),
 
 def render_features(world: World, cam, R_cw: np.ndarray, t_cw: np.ndarray, n_feat: int = 1024,
                     noise_px: float = 0.4, desc_flip_bits: int = 6, seed: int = 0,
-                    device="cuda"):
+                    stereo: bool = False, device="cuda"):
     """Project the landmarks into the view and emit Features (on `device`)
     with per-landmark descriptors, a few bits flipped per observation: the
-    ideal front end. Returns (features, landmark ids). The same draws and
-    arithmetic as the JAX package's `render_features` (monocular)."""
+    ideal front end. With `stereo` (and a camera with bf > 0) every feature
+    also gets its depth, with 1 cm of noise, and the matching right-image u.
+    Returns (features, landmark ids). The same draws and arithmetic as the
+    JAX package's `render_features`."""
     from ..frontend.types import Features
 
     rng = np.random.default_rng(seed)
@@ -235,13 +237,18 @@ def render_features(world: World, cam, R_cw: np.ndarray, t_cw: np.ndarray, n_fea
     level[:n] = (rng.random(n) < 0.15).astype(np.int32)
     valid = np.zeros((n_feat,), bool)
     valid[:n] = True
+    u_right = np.full((n_feat,), -1.0, np.float32)
+    depth = np.full((n_feat,), -1.0, np.float32)
+    if stereo and cam.bf > 0:
+        zs = pc[ids, 2].astype(np.float32)
+        depth[:n] = zs + rng.normal(0, 0.01, n)
+        u_right[:n] = xy[:n, 0] - cam.bf / np.maximum(depth[:n], 1e-6)
     t = lambda a: torch.from_numpy(a).to(device)
     return Features(
         xy=t(xy), level=t(level), angle=t(np.zeros((n_feat,), np.float32)),
         response=t(np.where(valid, np.float32(1.0), np.float32(-np.inf))),
         desc=t(desc.view(np.int32)), valid=t(valid),
-        u_right=t(np.full((n_feat,), -1.0, np.float32)),
-        depth=t(np.full((n_feat,), -1.0, np.float32)),
+        u_right=t(u_right), depth=t(depth),
     ), ids
 
 

@@ -1,5 +1,6 @@
 """Time the window-match kernel on a CUDA card, on the arguments of recorded
-calls (one per caller: tracking, two-view init, fuse).
+calls (one per caller: tracking, two-view init and fuse of monocular SLAM,
+tracking and fuse of stereo and of RGB-D SLAM).
 
     python3 chip_smoke.py --save-caller-inputs callers.pt
     python3 orb_slam3_comments_ghr_torch/utils/time_window_match.py \\
@@ -35,9 +36,6 @@ import time
 from pathlib import Path
 
 import torch
-
-CALLERS = ("tracking", "init", "fuse")
-
 
 def graph_ms(fn, launches: int = 100, replays: int = 20) -> float:
     """Device milliseconds per call of fn(): `launches` calls captured in a
@@ -154,7 +152,7 @@ def main(argv=None) -> int:
     device = torch.device("cuda", 0)
     result = {"label": opts.label, "tree": opts.tree, "library": lib.name,
               "card": torch.cuda.get_device_name(0), "callers": {}}
-    for caller in CALLERS:
+    for caller in recorded:
         args = tuple(a.to(device) for a in recorded[caller])
         out = wm_module.window_match(*args)
         plain = wm_module.window_match_plain(*args)

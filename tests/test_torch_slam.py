@@ -228,7 +228,7 @@ def test_parts_run_on_the_card_unless_told_otherwise(monkeypatch, part):
 
 @pytest.mark.parametrize("change", [
     {"enable_loop_closing": True}, {"async_mapping": True},
-    {"sensor": tconfig.IMU_MONOCULAR}, {"sensor": tconfig.STEREO}, {"sensor": tconfig.RGBD},
+    {"sensor": tconfig.IMU_MONOCULAR}, {"sensor": tconfig.IMU_STEREO}, {"sensor": tconfig.IMU_RGBD},
 ])
 def test_unported_options_raise(change):
     cfg = dataclasses.replace(tconfig.SlamConfig(enable_loop_closing=False), **change)
