@@ -1,6 +1,6 @@
 """Run the PyTorch port on a CUDA card: the window-match kernel against
-its plain version, the per-frame tracking program, and monocular, stereo
-and RGB-D SLAM end to end.
+its plain version, the per-frame tracking program, and monocular, stereo,
+RGB-D and visual-inertial SLAM end to end.
 
     python3 chip_smoke.py [--save-caller-inputs FILE]
 
@@ -30,10 +30,18 @@ keyframes with depth-spawned points, local mapping, and the metric
 trajectory (no scale fit). Phase 5 also holds the row matcher
 (`stereo_match`) and the RGB-D conversion on the card against the port on
 the CPU and times them; phase 6 does the same for the stereo rectification
-remap and CLAHE. Phases 4-6 each count the window match's launches from 0
-and record its arguments on one call of each caller; after them, phase 1
-holds the kernel against the plain version on those calls and times it
-there (`--save-caller-inputs` also writes them to FILE for
+remap and CLAHE. Phase 7 drives stereo-inertial `SLAM.track_stereo` with
+the IMU rows (150 frames of `vi_sequence` rendered from the same scene, the
+stereo-inertial configuration of `bench.py`): preintegration, the
+IMU-predicted pose and its 4x wider search, visual-inertial refinement, the
+inertial keyframe rule, the IMU initialization (gravity alignment of the
+map, VI-BA) and inertial local BA, checked against ground truth, with the
+per-frame and per-stage times; phase 8 RGB-D-inertial `track_rgbd` (60
+frames), phase 9 mono-inertial `track_features` on rendered features (80
+frames), each to its test's bars. Phases 4-9 each count the window match's
+launches from 0 and record its arguments on one call of each caller; after
+them, phase 1 holds the kernel against the plain version on those calls
+and times it there (`--save-caller-inputs` also writes them to FILE for
 `orb_slam3_comments_ghr_torch/utils/time_window_match.py`). Any failure
 raises. The last lines are the card's name and power limit, a JSON line of
 per-kernel results (with the launches and matcher calls of each path and
@@ -44,6 +52,7 @@ card; exits non-zero without one.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import subprocess
 import sys
@@ -625,7 +634,7 @@ def phase_depth_slam(wm_mod, seq, second, mode: str):
     metric ATE (no scale fit) under ATE_BAR, never calls the two-view init,
     and the window match launched once per tracking and fuse call. Returns
     (launches, the matcher calls, the recorded window-match arguments, the
-    SLAM object)."""
+    SLAM object, the per-frame ms without a keyframe)."""
     from orb_slam3_comments_ghr_torch.ops import cameras
     from orb_slam3_comments_ghr_torch.system import SLAM
     from orb_slam3_comments_ghr_torch.utils import config, evaluation, synthetic
@@ -695,11 +704,11 @@ def phase_depth_slam(wm_mod, seq, second, mode: str):
     if launches != calls["tracking"] + calls["fuse"]:
         raise AssertionError(f"{tag}: {launches} launches for {calls['tracking']} tracking and "
                              f"{calls['fuse']} fuse calls")
-    return launches, calls, recorded, slam
+    return launches, calls, recorded, slam, plain_frame_ms
 
 
-def device_ms(fn, calls: int = 10) -> float:
-    """Device milliseconds per call of fn(): the kernels and copies of
+def device_profile(fn, calls: int = 10) -> tuple[float, float]:
+    """(device milliseconds, kernels and copies) per call of fn(): those of
     `calls` calls under torch.profiler (one stream: they do not overlap),
     after a warm-up call."""
     fn()
@@ -709,18 +718,22 @@ def device_ms(fn, calls: int = 10) -> float:
             fn()
         torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
-    us = sum(e.time_range.elapsed_us() for e in prof.events() if e.device_type == cuda)
+    on_card = [e for e in prof.events() if e.device_type == cuda]
+    us = sum(e.time_range.elapsed_us() for e in on_card)
     if us <= 0:
         raise AssertionError("torch.profiler recorded no device time")
-    return us / 1e3 / calls
+    return us / 1e3 / calls, len(on_card) / calls
 
 
-def stage_times(label: str, fn) -> dict:
-    """Host ms (median of 20 calls, each ending in a sync) and device ms
-    per call of fn, printed and returned."""
-    t = {"host_ms": float(np.median([host_ms(fn) for _ in range(20)])), "device_ms": device_ms(fn)}
-    print(f"  {label}: host {t['host_ms']:.3f} ms per call (median of 20, synchronized), device "
-          f"{t['device_ms']:.4f} ms per call (torch.profiler, 10 calls)")
+
+def stage_times(label: str, fn, calls: int = 20) -> dict:
+    """Host ms (median of `calls` calls, each ending in a sync), device ms
+    and kernels and copies per call of fn, printed and returned."""
+    t = {"host_ms": float(np.median([host_ms(fn) for _ in range(calls)]))}
+    t["device_ms"], t["launches"] = device_profile(fn, max(3, calls // 2))
+    print(f"  {label}: host {t['host_ms']:.3f} ms per call (median of {calls}, synchronized), "
+          f"device {t['device_ms']:.4f} ms per call (torch.profiler), {t['launches']:.0f} kernels "
+          f"and copies per call")
     return t
 
 
@@ -772,9 +785,8 @@ def depth_stages_against_cpu(device, seq, right, depth, slam):
     for k in ("stereo", "as mono", "as mono", "stereo") * 5:
         ms[k].append(host_ms(lambda: programs.track_against_points(cam, feats[k], lp, R, t)))
     for k, v in ms.items():
-        out[f"track_against_points {k}"] = {"host_ms": float(np.median(v)),
-                                            "device_ms": device_ms(lambda: programs.track_against_points(
-                                                cam, feats[k], lp, R, t))}
+        device = device_profile(lambda: programs.track_against_points(cam, feats[k], lp, R, t))[0]
+        out[f"track_against_points {k}"] = {"host_ms": float(np.median(v)), "device_ms": device}
     print("phase5 track_against_points on the last local map, host ms (median of 10, in turns) / "
           "device ms: " + ", ".join(f"{k} {out[f'track_against_points {k}']['host_ms']:.3f} / "
                                      f"{out[f'track_against_points {k}']['device_ms']:.3f}"
@@ -817,6 +829,396 @@ def rectify_clahe_against_cpu(device, seq, right):
     return out
 
 
+PHASE7_FRAMES = 150
+# the near-ideal IMU calibration of bench.py's stereo-inertial pass and of
+# tests/test_vi_*.py: noise densities 1e-4 / 1e-3, walks 1e-6 / 1e-5
+IMU_NOISE = dict(noise_g=1e-4, noise_a=1e-3, walk_g=1e-6, walk_a=1e-5)
+# the calls of phase 7 whose window-match arguments are kept: the 100th
+# tracking call (after the IMU init, which lands near frame 35: its windows
+# are 4x wider) and the last fuse
+RECORD_AT_VI = {"tracking": 100, "fuse": None}
+# frames of phase 7 run under torch.cuda.set_sync_debug_mode("warn"): each
+# host sync they make is counted by the line of the port that made it (the
+# frames are left out of the per-frame times)
+SYNC_PROBE_FRAMES = (120, 121, 122)
+
+
+def imu_calib():
+    from orb_slam3_comments_ghr_torch.optim import imu as imu_mod
+
+    return imu_mod.ImuCalib(Rbc=np.eye(3, dtype=np.float32), tbc=np.zeros(3, np.float32),
+                            **IMU_NOISE)
+
+
+def vi_inputs(n: int, scene_seed: int, second: str):
+    """Frames 0..n-1 of `vi_sequence(n)` over `make_textured_scene(scene_seed)`:
+    (left uint8 frames, second inputs (the right view of a rectified rig, t_r
+    = t - [b, 0, 0], as bench.py renders its stereo-inertial input; or the
+    exact depth map), per-frame IMU rows in (t_{i-1}, t_i], timestamps,
+    poses)."""
+    from orb_slam3_comments_ghr_torch.ops import cameras
+    from orb_slam3_comments_ghr_torch.utils import synthetic
+
+    cam = cameras.euroc_cam0()
+    scene = synthetic.make_textured_scene(scene_seed)
+    poses, imu_rows, times = synthetic.vi_sequence(n)
+    u8 = lambda img: np.clip(np.round(img), 0, 255).astype(np.uint8)
+    b = np.array([cam.bf / cam.fx, 0.0, 0.0], np.float32)
+    left = [u8(synthetic.render_image(scene, cam, R, t)) for R, t in poses]
+    if second == "right":
+        sec = [u8(synthetic.render_image(scene, cam, R, t - b)) for R, t in poses]
+    else:
+        sec = [synthetic.depth_map(scene, cam, R, t) for R, t in poses]
+    rows = [imu_rows[(imu_rows[:, 0] > (times[i - 1] if i else -1.0)) & (imu_rows[:, 0] <= times[i])]
+            for i in range(n)]
+    return left, sec, rows, times, poses
+
+
+def vi_gt(poses, times) -> list:
+    return [(times[i], np.vstack([np.hstack([R, t[:, None]]), [0, 0, 0, 1]]).astype(np.float32))
+            for i, (R, t) in enumerate(poses)]
+
+
+def _keep_call(module, name: str, box: dict, key: str, which):
+    """Replace module.name by a wrapper that keeps (args, kwargs) of the
+    call for which which(call index from 1, box) is true under box[key];
+    returns the original."""
+    fn = getattr(module, name)
+    count = [0]
+
+    def kept(*args, **kwargs):
+        count[0] += 1
+        if key not in box and which(count[0], box):
+            box[key] = (args, kwargs)
+        return fn(*args, **kwargs)
+
+    setattr(module, name, kept)
+    return fn
+
+
+def phase7_stereo_inertial(wm_mod, device):
+    """Stereo-inertial `SLAM.track_stereo` with the IMU rows over
+    PHASE7_FRAMES frames at the stereo-inertial configuration of bench.py
+    (1024 features, local map 4096, local BA 2048 points, a keyframe at
+    least every 10 frames, loop closing and asynchronous mapping off). Fails
+    unless the IMU initializes, >= 95 % of the frames are tracked, the
+    metric ATE (no scale fit) of `SLAM.trajectory()` is < 8 cm (the bar of
+    tests/test_vi_stereo.py), the two-view init never runs, and the window
+    match launched once per tracking and fuse call. Returns (launches, the
+    matcher calls, the recorded window-match arguments, the per-frame times,
+    the stage times)."""
+    from orb_slam3_comments_ghr_torch.ops import cameras
+    from orb_slam3_comments_ghr_torch.optim import imu as imu_mod, inertial, vi_ba
+    from orb_slam3_comments_ghr_torch.system import SLAM
+    from orb_slam3_comments_ghr_torch.utils import config, evaluation
+
+    left, right, rows, times, poses = vi_inputs(PHASE7_FRAMES, 7, "right")
+    cfg = config.SlamConfig(sensor=config.IMU_STEREO, n_features=1024, local_points_cap=4096,
+                            local_ba_points=2048, max_frames_between_kf=10, min_init_matches=60,
+                            enable_loop_closing=False)
+    slam = SLAM(cameras.euroc_cam0(), cfg, imu_calib=imu_calib(), device=device)
+    calls = {"tracking": 0, "init": 0, "fuse": 0}
+    active, recorded = [], {}
+    originals = _count_matchers(wm_mod, calls, active, recorded, RECORD_AT_VI, "stereo-inertial ")
+    # the inputs of one call of each inertial stage, replayed for its times
+    # below: a frame's preintegration and the VI refinement after the IMU
+    # init, the initializing inertial_init, the first inertial local BA
+    kept = {}
+    imu_ready = lambda: slam.map.map_imu_init.get(slam.map.active_map, False)
+    originals += [
+        (imu_mod, "preintegrate", _keep_call(imu_mod, "preintegrate", kept, "preintegrate",
+                                             lambda i, b: imu_ready() and i > 60)),
+        (inertial, "pose_inertial_optimize", _keep_call(
+            inertial, "pose_inertial_optimize", kept, "pose_inertial_optimize",
+            lambda i, b: i == 10)),
+        (inertial, "inertial_init", _keep_call(inertial, "inertial_init", kept, "inertial_init",
+                                               lambda i, b: not imu_ready())),
+        (vi_ba, "vi_bundle_adjust", _keep_call(vi_ba, "vi_bundle_adjust", kept, "vi_bundle_adjust",
+                                               lambda i, b: i >= 2)),
+    ]
+    stage_ms = {k: [] for k in ("tracker._vi_refine", "mapper.maybe_initialize_imu",
+                                "mapper.local_ba (inertial)", "process_keyframe")}
+
+    def host_timed(obj, name, key, when=lambda: True):
+        fn = getattr(obj, name)
+
+        def timed(*args):
+            box = {}
+            ms = host_ms(lambda: box.update(out=fn(*args)))
+            if when():
+                stage_ms[key].append(ms)
+            return box["out"]
+
+        setattr(obj, name, timed)
+
+    # these stages end in a device->host copy already: the sync adds nothing
+    host_timed(slam.tracker, "_vi_refine", "tracker._vi_refine")
+    host_timed(slam.mapper, "maybe_initialize_imu", "mapper.maybe_initialize_imu")
+    host_timed(slam.mapper, "local_ba", "mapper.local_ba (inertial)", imu_ready)
+    host_timed(slam.mapper, "process_keyframe", "process_keyframe")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wm_mod.launches = 0
+    try:
+        tracked, frame_ms, init_frame, imu_frame = [], {False: [], True: []}, None, None
+        syncs = collections.Counter()
+        for i in range(PHASE7_FRAMES):
+            box = {}
+            ready = imu_ready()
+            step = lambda: box.update(pose=slam.track_stereo(left[i], right[i], times[i],
+                                                             imu_samples=rows[i]))
+            if i in SYNC_PROBE_FRAMES:
+                syncs.update(count_syncs(step))
+                ms = None
+            else:
+                ms = host_ms(step)
+            if box["pose"] is not None:
+                if not np.isfinite(box["pose"]).all():
+                    raise AssertionError(f"stereo-inertial frame {i}: non-finite pose")
+                init_frame = i if init_frame is None else init_frame
+                tracked.append(i)
+            if imu_frame is None and imu_ready():
+                imu_frame = i
+            if (ms is not None and init_frame is not None and i > init_frame
+                    and slam.tracker.pending_kf is None):
+                frame_ms[ready].append(ms)
+        torch.cuda.synchronize()
+        launches = wm_mod.launches
+    finally:
+        for module, name, fn in originals:
+            setattr(module, name, fn)
+        for name in ("_vi_refine",):
+            delattr(slam.tracker, name)
+        for name in ("maybe_initialize_imu", "local_ba", "process_keyframe"):
+            delattr(slam.mapper, name)
+    peak = torch.cuda.max_memory_allocated()
+    ate = evaluation.ate_rmse(slam.trajectory(), vi_gt(poses, times), with_scale=False)
+    rec = recorded.get("stereo-inertial tracking")
+    print(f"phase7 stereo-inertial {PHASE7_FRAMES} frames: initialized at frame {init_frame}, IMU "
+          f"initialized at frame {imu_frame}, VIBA1 {slam.mapper.viba1_done}, tracked "
+          f"{len(tracked)}/{PHASE7_FRAMES}, keyframes {slam.n_keyframes()}, map points "
+          f"{slam.n_map_points()}, metric ATE (no scale fit) {ate * 1e3:.3f} mm")
+    if rec is not None:
+        print(f"phase7 recorded tracking call {RECORD_AT_VI['tracking']}: searching rows "
+              f"{int((rec[2] > 0).sum())}, median radius {float(rec[2][rec[2] > 0].median()):.2f} px")
+    print(f"phase7 window_match launches {launches}; matcher calls tracking {calls['tracking']}, "
+          f"init {calls['init']}, fuse {calls['fuse']}")
+    frames = {}
+    for ready, v in frame_ms.items():
+        key = "imu_ready" if ready else "before_imu_init"
+        frames[key] = {"n": len(v), "median_ms": float(np.median(v)) if v else None,
+                       "p75_ms": float(np.percentile(v, 75)) if v else None}
+        print(f"phase7 track_stereo ms on {len(v)} frames without a keyframe, {key} (median / "
+              f"p75): " + (f"{np.median(v):.3f} / {np.percentile(v, 75):.3f}" if v else "none"))
+    for key, v in stage_ms.items():
+        print(f"phase7 {key} host ms over {len(v)} calls (median / max): "
+              + (f"{np.median(v):.3f} / {max(v):.3f}" if v else "none"))
+    print(f"phase7 max_memory_allocated {peak / 2**20:.1f} MiB")
+    n_probe = len([i for i in SYNC_PROBE_FRAMES if i < PHASE7_FRAMES])
+    print(f"phase7 host syncs per IMU-ready frame (frames {SYNC_PROBE_FRAMES}, "
+          f"set_sync_debug_mode): {sum(syncs.values()) / max(n_probe, 1):.1f}; by line of the "
+          "port: " + ", ".join(f"{k} {v / max(n_probe, 1):.1f}" for k, v in syncs.most_common()))
+    if imu_frame is None:
+        raise AssertionError("phase7: the IMU never initialized")
+    if len(tracked) < 0.95 * PHASE7_FRAMES:
+        raise AssertionError(f"phase7: tracked {len(tracked)} of {PHASE7_FRAMES} frames (< 95 %)")
+    if not ate < 0.08:
+        raise AssertionError(f"phase7: metric ATE {ate:.4f} m >= 8 cm")
+    if calls["init"] != 0 or calls["fuse"] == 0:
+        raise AssertionError("phase7: the two-view init ran, or the fuse never did")
+    if launches != calls["tracking"] + calls["fuse"]:
+        raise AssertionError(f"phase7: {launches} launches for {calls['tracking']} tracking and "
+                             f"{calls['fuse']} fuse calls")
+    if rec is None or RECORD_AT_VI["tracking"] <= imu_frame:
+        raise AssertionError("phase7: the recorded tracking call is not after the IMU init")
+    missing = {"preintegrate", "pose_inertial_optimize", "inertial_init",
+               "vi_bundle_adjust"} - set(kept)
+    if missing:
+        raise AssertionError(f"phase7: the run never called {sorted(missing)}")
+
+    # each inertial stage again on its kept inputs: host and device ms and
+    # kernels per call (the calls are pure functions of their inputs)
+    print("phase7 inertial stages on kept inputs:")
+    stages = {}
+    for key, fn in (("preintegrate", imu_mod.preintegrate),
+                    ("pose_inertial_optimize", inertial.pose_inertial_optimize),
+                    ("inertial_init", inertial.inertial_init),
+                    ("vi_bundle_adjust", vi_ba.vi_bundle_adjust)):
+        args, kwargs = kept[key]
+        n = 20 if key in ("preintegrate", "pose_inertial_optimize") else 5
+        stages[key] = stage_times(f"{key} {_describe(key, args, kwargs)}",
+                                  lambda: fn(*args, **kwargs), calls=n)
+    stages.update({f"{k} in the run": {"host_ms_median": float(np.median(v)) if v else None,
+                                       "calls": len(v)} for k, v in stage_ms.items()})
+    result = dict(init_frame=init_frame, imu_init_frame=imu_frame,
+                  viba1=bool(slam.mapper.viba1_done), tracked=len(tracked),
+                  keyframes=slam.n_keyframes(), points=slam.n_map_points(), ate_m=ate,
+                  peak_mib=peak / 2**20, frames=frames,
+                  syncs_per_frame={k: v / max(n_probe, 1) for k, v in syncs.items()})
+    return launches, calls, recorded, result, stages
+
+
+def count_syncs(fn) -> collections.Counter:
+    """Run fn() under torch.cuda.set_sync_debug_mode("warn"); count the
+    host syncs it made by the innermost line of the port on the stack."""
+    import traceback
+    import warnings
+
+    where = collections.Counter()
+
+    def note(message, category, filename, lineno, file=None, line=None):
+        frames = [f for f in traceback.extract_stack()
+                  if "orb_slam3_comments_ghr_torch" in f.filename]
+        at = frames[-1] if frames else None
+        where[f"{at.filename.split('orb_slam3_comments_ghr_torch/')[-1]}:{at.lineno}"
+              if at else f"{filename}:{lineno}"] += 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = note
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return where
+
+
+def _describe(key: str, args, kwargs) -> str:
+    """Shape of a kept call, for the printed stage line."""
+    if key == "preintegrate":
+        return f"({args[0].shape[0]} samples)"
+    if key == "pose_inertial_optimize":
+        return f"({args[4].p_world.shape[0]} rows, {int(args[4].valid.sum())} valid)"
+    if key == "inertial_init":
+        return f"({args[0].Rwb.shape[0]} keyframes)"
+    return f"({args[1].Rwb.shape[0]} keyframes, {int(args[1].p_valid.sum())} points, " \
+           f"{kwargs.get('iters', 10)} iterations)"
+
+
+PHASE8_FRAMES = 60
+
+
+def phase8_rgbd_inertial(wm_mod, device):
+    """RGB-D-inertial `SLAM.track_rgbd` with the IMU rows and the exact
+    depth maps over PHASE8_FRAMES frames of `make_textured_scene(61)`, the
+    configuration of tests/test_rgbd_inertial.py. Fails unless the IMU
+    initializes, > 45 frames are tracked, the metric ATE is < 12 cm (that
+    test's bars), and the window match launched once per tracking and fuse
+    call. Returns (launches, the matcher calls, the results)."""
+    from orb_slam3_comments_ghr_torch.ops import cameras
+    from orb_slam3_comments_ghr_torch.system import SLAM
+    from orb_slam3_comments_ghr_torch.utils import config, evaluation
+
+    img, depth, rows, times, poses = vi_inputs(PHASE8_FRAMES, 61, "depth")
+    cfg = config.SlamConfig(sensor=config.IMU_RGBD, n_features=768, local_points_cap=2048,
+                            local_ba_points=2048, max_frames_between_kf=5,
+                            enable_loop_closing=False)
+    slam = SLAM(cameras.euroc_cam0(), cfg, imu_calib=imu_calib(), device=device)
+    calls = {"tracking": 0, "init": 0, "fuse": 0}
+    originals = _count_matchers(wm_mod, calls, [], {}, {})
+    torch.cuda.synchronize()
+    wm_mod.launches = 0
+    try:
+        tracked, imu_frame = 0, None
+        for i in range(PHASE8_FRAMES):
+            pose = slam.track_rgbd(img[i], depth[i], times[i], imu_samples=rows[i])
+            if pose is not None:
+                if not np.isfinite(pose).all():
+                    raise AssertionError(f"rgbd-inertial frame {i}: non-finite pose")
+                tracked += 1
+            if imu_frame is None and slam.map.map_imu_init.get(slam.map.active_map, False):
+                imu_frame = i
+        torch.cuda.synchronize()
+        launches = wm_mod.launches
+    finally:
+        for module, name, fn in originals:
+            setattr(module, name, fn)
+    ate = evaluation.ate_rmse(slam.trajectory(), vi_gt(poses, times), with_scale=False)
+    print(f"phase8 rgbd-inertial {PHASE8_FRAMES} frames: IMU initialized at frame {imu_frame}, "
+          f"tracked {tracked}/{PHASE8_FRAMES}, keyframes {slam.n_keyframes()}, map points "
+          f"{slam.n_map_points()}, metric ATE (no scale fit) {ate * 1e3:.3f} mm; window_match "
+          f"launches {launches}; matcher calls tracking {calls['tracking']}, init {calls['init']}, "
+          f"fuse {calls['fuse']}")
+    if imu_frame is None:
+        raise AssertionError("phase8: the IMU never initialized")
+    if tracked <= 45 or not ate < 0.12:
+        raise AssertionError(f"phase8: tracked {tracked} (<= 45) or metric ATE {ate:.4f} m >= 12 cm")
+    if calls["init"] != 0 or launches != calls["tracking"] + calls["fuse"]:
+        raise AssertionError(f"phase8: {launches} launches for {calls} matcher calls")
+    return launches, calls, dict(imu_init_frame=imu_frame, tracked=tracked,
+                                 keyframes=slam.n_keyframes(), points=slam.n_map_points(), ate_m=ate)
+
+
+PHASE9_FRAMES = 80
+
+
+def phase9_mono_inertial(wm_mod, device):
+    """Mono-inertial `SLAM.track_features` over PHASE9_FRAMES frames of
+    rendered features (512, `render_features` of `make_world(31)`), the
+    configuration of tests/test_vi_pipeline.py: two-view init, then the IMU
+    init with the scale (`optimize_scale`). Fails unless the IMU
+    initializes, > 60 frames are tracked, and after the init the
+    Sim(3)-aligned ATE is < 8 cm and the metric ATE < 25 cm (that test's
+    bars), and the window match launched once per matcher call. Returns
+    (launches, the matcher calls, the results)."""
+    from orb_slam3_comments_ghr_torch.ops import cameras
+    from orb_slam3_comments_ghr_torch.system import SLAM
+    from orb_slam3_comments_ghr_torch.utils import config, evaluation, synthetic
+
+    cam = cameras.euroc_cam0()
+    world = synthetic.make_world(31, n_points=3000)
+    poses, imu_rows, times = synthetic.vi_sequence(PHASE9_FRAMES)
+    cfg = config.SlamConfig(sensor=config.IMU_MONOCULAR, n_features=512, local_points_cap=2048,
+                            local_ba_points=2048, max_frames_between_kf=5, min_init_matches=60,
+                            enable_loop_closing=False)
+    slam = SLAM(cam, cfg, imu_calib=imu_calib(), device=device)
+    feats = [synthetic.render_features(world, cam, R, t, n_feat=512, seed=4100 + i, device=device)[0]
+             for i, (R, t) in enumerate(poses)]
+    calls = {"tracking": 0, "init": 0, "fuse": 0}
+    originals = _count_matchers(wm_mod, calls, [], {}, {})
+    torch.cuda.synchronize()
+    wm_mod.launches = 0
+    try:
+        est = []
+        for i in range(PHASE9_FRAMES):
+            chunk = imu_rows[(imu_rows[:, 0] > (times[i - 1] if i else -1.0))
+                             & (imu_rows[:, 0] <= times[i])]
+            if len(chunk):
+                slam.feed_imu(chunk)
+            pose = slam.track_features(feats[i], times[i])
+            if pose is not None:
+                if not np.isfinite(pose).all():
+                    raise AssertionError(f"mono-inertial frame {i}: non-finite pose")
+                est.append((times[i], pose))
+        torch.cuda.synchronize()
+        launches = wm_mod.launches
+    finally:
+        for module, name, fn in originals:
+            setattr(module, name, fn)
+    t_init = slam.mapper.t_imu_init
+    if t_init is None or not slam.map.map_imu_init.get(slam.map.active_map, False):
+        raise AssertionError("phase9: the IMU never initialized")
+    est_post = [(t, T) for t, T in est if t > t_init]
+    gt_post = [(t, T) for t, T in vi_gt(poses, times) if t > t_init]
+    scaled = evaluation.ate_rmse(est_post, gt_post, with_scale=True)
+    metric = evaluation.ate_rmse(est_post, gt_post, with_scale=False)
+    print(f"phase9 mono-inertial {PHASE9_FRAMES} frames: IMU initialized at t = {t_init:.2f} s, "
+          f"tracked {len(est)}/{PHASE9_FRAMES}, keyframes {slam.n_keyframes()}, map points "
+          f"{slam.n_map_points()}, after the IMU init Sim(3)-aligned ATE {scaled * 1e3:.3f} mm, "
+          f"metric ATE {metric * 1e3:.3f} mm; window_match launches {launches}; matcher calls "
+          f"tracking {calls['tracking']}, init {calls['init']}, fuse {calls['fuse']}")
+    if len(est) <= 60 or not scaled < 0.08 or not metric < 0.25:
+        raise AssertionError(f"phase9: tracked {len(est)} (<= 60), or ATE {scaled:.4f} m "
+                             f"(Sim(3)) / {metric:.4f} m (metric) over 8 / 25 cm")
+    if calls["init"] == 0 or launches != sum(calls.values()):
+        raise AssertionError(f"phase9: {launches} launches for {calls} matcher calls")
+    return launches, calls, dict(t_imu_init=t_init, tracked=len(est),
+                                 keyframes=slam.n_keyframes(), points=slam.n_map_points(),
+                                 ate_sim3_m=scaled, ate_metric_m=metric)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Run the PyTorch port on a CUDA card.")
     ap.add_argument("--save-caller-inputs", metavar="FILE",
@@ -857,10 +1259,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     right, depth = second_inputs(seq, "stereo"), second_inputs(seq, "rgbd")
     print(f"rendered {PHASE5_FRAMES} right views and depth maps in {time.perf_counter() - t0:.1f} s")
-    stages = {}
+    stages, depth_frame_ms = {}, {}
     for mode, second in (("stereo", right), ("rgbd", depth)):
         t0 = time.perf_counter()
-        n, calls, rec, slam = phase_depth_slam(window_match, seq, second, mode)
+        n, calls, rec, slam, depth_frame_ms[mode] = phase_depth_slam(window_match, seq, second, mode)
         paths[mode] = dict(calls, launches=n)
         recorded.update(rec)
         if mode == "stereo":
@@ -868,12 +1270,35 @@ def main(argv=None) -> int:
         else:
             stages.update(rectify_clahe_against_cpu(device, seq, right))
         print(f"phase{5 if mode == 'stereo' else 6} passed in {time.perf_counter() - t0:.1f} s")
+    del slam
+
+    t0 = time.perf_counter()
+    n, calls, rec, vi_stereo, vi_stages = phase7_stereo_inertial(window_match, device)
+    paths["stereo-inertial"] = dict(calls, launches=n)
+    recorded.update(rec)
+    v = depth_frame_ms["stereo"]
+    print(f"phase7 per-frame ms without a keyframe (median / p75), this call: track_stereo "
+          f"(phase 5) {np.median(v):.3f} / {np.percentile(v, 75):.3f}; stereo-inertial before the "
+          f"IMU init {vi_stereo['frames']['before_imu_init']['median_ms']:.3f} / "
+          f"{vi_stereo['frames']['before_imu_init']['p75_ms']:.3f}, IMU-ready "
+          f"{vi_stereo['frames']['imu_ready']['median_ms']:.3f} / "
+          f"{vi_stereo['frames']['imu_ready']['p75_ms']:.3f}")
+    print(f"phase7 passed in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    n, calls, vi_rgbd = phase8_rgbd_inertial(window_match, device)
+    paths["rgbd-inertial"] = dict(calls, launches=n)
+    print(f"phase8 passed in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    n, calls, vi_mono = phase9_mono_inertial(window_match, device)
+    paths["mono-inertial"] = dict(calls, launches=n)
+    print(f"phase9 passed in {time.perf_counter() - t0:.1f} s")
     if opts.save_caller_inputs:
         torch.save({k: tuple(a.cpu() for a in v) for k, v in recorded.items()},
                    opts.save_caller_inputs)
     err, callers = phase1_callers(window_match, matching, recorded, device,
                                   [*RECORD_AT, *(f"{m} {c}" for m in ("stereo", "rgbd")
-                                                 for c in RECORD_AT_DEPTH)])
+                                                 for c in RECORD_AT_DEPTH),
+                                   *(f"stereo-inertial {c}" for c in RECORD_AT_VI)])
     max_err = max(max_err, err)
     print("phase1 on the recorded caller inputs passed")
 
@@ -883,14 +1308,17 @@ def main(argv=None) -> int:
         "name": "window_match", "route": "cuda",
         "source": "orb_slam3_comments_ghr_torch/csrc/window_match.cu",
         "replaces": "orb_slam3_comments_ghr_tpu/ops/pallas_match.py:88",
-        # launches over the main runs of phases 4, 5 and 6, each counted from 0
-        "launches": sum(paths[p]["launches"] for p in ("mono", "stereo", "rgbd")),
+        # launches over the main runs of phases 4-9, each counted from 0
+        "launches": sum(paths[p]["launches"] for p in (
+            "mono", "stereo", "rgbd", "stereo-inertial", "rgbd-inertial", "mono-inertial")),
         "max_abs_err": max_err,
         # device time per launch on the recorded mono tracking call (CUDA graph)
         "ms": track["device_ms"], "plain_ms": track["plain_ms"],
         "bound_ms": track["bound_ms"], "bound_by": track["bound_by"], "library_ms": None,
         "paths": paths, "callers": callers, "random_4096x1024_r80": synthetic_times,
-    }], "plain_stages": stages}))
+    }], "plain_stages": stages, "inertial": {
+        "stereo-inertial": vi_stereo, "rgbd-inertial": vi_rgbd, "mono-inertial": vi_mono,
+        "stages": vi_stages}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,4 +1,5 @@
-"""PyTorch + CUDA port of the per-frame monocular tracking program.
+"""PyTorch + CUDA port of the SLAM engine: monocular, stereo and RGB-D, each
+with or without an IMU (`system.SLAM`).
 
 Module paths and function names mirror `orb_slam3_comments_ghr_tpu`, which
 stays the reference the port is tested against. This package imports torch

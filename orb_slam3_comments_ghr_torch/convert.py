@@ -26,6 +26,9 @@ from .frontend.types import Features
 from .map.state import MapConfig, MapState
 from .ops.cameras import Camera
 from .optim.ba import BAProblem
+from .optim.imu import ImuCalib, Preintegrated
+from .optim.inertial import VIPrior, VIState
+from .optim.vi_ba import VIBAProblem
 from .pipeline.programs import LocalPoints
 from .utils.config import SlamConfig
 
@@ -46,7 +49,7 @@ def desc_tensor(desc: np.ndarray, device="cuda") -> torch.Tensor:
 
 
 _INT_FIELDS = ("level", "obs_cam", "obs_level")
-_BOOL_FIELDS = ("valid", "cam_fixed", "p_valid", "obs_valid")
+_BOOL_FIELDS = ("valid", "cam_fixed", "p_valid", "obs_valid", "fixed", "pre_valid")
 
 
 def _tensor(name: str, a, device) -> torch.Tensor:
@@ -88,6 +91,35 @@ def ba_problem_from_numpy(arrays: Mapping[str, np.ndarray], device="cuda") -> BA
     """A windowed BA problem from its padded arrays (the fields of the JAX
     package's BAProblem; the rig fields are not ported)."""
     return BAProblem(**{k: _tensor(k, arrays[k], device) for k in BAProblem._fields})
+
+
+def imu_calib_from_jax(calib) -> ImuCalib:
+    """The port's ImuCalib with the values of a JAX-package ImuCalib (the
+    extrinsics as host float32 arrays)."""
+    return ImuCalib(Rbc=np.asarray(calib.Rbc, np.float32), tbc=np.asarray(calib.tbc, np.float32),
+                    noise_g=float(calib.noise_g), noise_a=float(calib.noise_a),
+                    walk_g=float(calib.walk_g), walk_a=float(calib.walk_a))
+
+
+def preintegrated_from_numpy(arrays: Mapping[str, np.ndarray], device="cuda") -> Preintegrated:
+    """A Preintegrated (or a stack of them) from its fields."""
+    return Preintegrated(**{k: _tensor(k, arrays[k], device) for k in Preintegrated._fields})
+
+
+def vi_state_from_numpy(arrays: Mapping[str, np.ndarray], device="cuda") -> VIState:
+    return VIState(**{k: _tensor(k, arrays[k], device) for k in VIState._fields})
+
+
+def vi_prior_from_numpy(arrays: Mapping[str, np.ndarray], device="cuda") -> VIPrior:
+    return VIPrior(**{k: _tensor(k, arrays[k], device) for k in VIPrior._fields})
+
+
+def vi_ba_problem_from_numpy(arrays: Mapping, device="cuda") -> VIBAProblem:
+    """A windowed VI-BA problem from its padded arrays; `pre` is a mapping
+    of the stacked preintegrations' fields (the rig fields are not
+    ported)."""
+    fields = {k: _tensor(k, arrays[k], device) for k in VIBAProblem._fields if k != "pre"}
+    return VIBAProblem(pre=preintegrated_from_numpy(arrays["pre"], device), **fields)
 
 
 def to_numpy(container) -> dict:

@@ -1,7 +1,8 @@
 """SO(3) / SE(3) operations on the per-frame path.
 
 Port of the SO(3)/SE(3) and quaternion part of
-`orb_slam3_comments_ghr_tpu/ops/lie.py`.
+`orb_slam3_comments_ghr_tpu/ops/lie.py`, with the right Jacobians and the
+rotation re-projection that IMU preintegration needs.
 Rotations are (...,3,3) matrices, translations (...,3) vectors; every
 function broadcasts over leading batch dims. The se3 tangent is ordered
 [rho (translation), phi (rotation)], as g2o's SE3Quat.
@@ -29,7 +30,11 @@ def hat(v: torch.Tensor) -> torch.Tensor:
 def _sinc_coeffs_sq(t2: torch.Tensor):
     """(A, B, C) = (sin t/t, (1-cos t)/t^2, (t - sin t)/t^3) from t2 = t^2,
     with the Taylor branch below t2 = 1e-8 (the sqrt runs on a clamped
-    value so the branch not taken never produces NaN)."""
+    value so the branch not taken never produces NaN).
+
+    Callers keep a trailing axis on t2 (keepdim): in torch 2.13 forward-mode
+    AD (`torch.func.jacfwd`) gives a 0-dim tensor times a Python float a
+    float64 tangent, which then breaks the first matmul."""
     small = t2 < 1e-8
     safe_t = torch.sqrt(torch.where(small, torch.ones_like(t2), t2))
     A = torch.where(small, 1.0 - t2 / 6.0, torch.sin(safe_t) / safe_t)
@@ -44,18 +49,65 @@ def _eye_like(K: torch.Tensor) -> torch.Tensor:
 
 def so3_exp(phi: torch.Tensor) -> torch.Tensor:
     """Rodrigues: (...,3) tangent -> (...,3,3) rotation."""
-    t2 = torch.sum(phi * phi, dim=-1)
+    t2 = torch.sum(phi * phi, dim=-1, keepdim=True)
     A, B, _ = _sinc_coeffs_sq(t2)
     K = hat(phi)
-    return _eye_like(K) + A[..., None, None] * K + B[..., None, None] * (K @ K)
+    return _eye_like(K) + A[..., None] * K + B[..., None] * (K @ K)
 
 
 def so3_left_jacobian(phi: torch.Tensor) -> torch.Tensor:
     """J_l(phi): (...,3) -> (...,3,3)."""
-    t2 = torch.sum(phi * phi, dim=-1)
+    t2 = torch.sum(phi * phi, dim=-1, keepdim=True)
     _, B, C = _sinc_coeffs_sq(t2)
     K = hat(phi)
-    return _eye_like(K) + B[..., None, None] * K + C[..., None, None] * (K @ K)
+    return _eye_like(K) + B[..., None] * K + C[..., None] * (K @ K)
+
+
+def so3_right_jacobian(phi: torch.Tensor) -> torch.Tensor:
+    """J_r(phi) = J_l(-phi) (IMU::RightJacobianSO3, ImuTypes.h:258)."""
+    return so3_left_jacobian(-phi)
+
+
+def so3_right_jacobian_inv(phi: torch.Tensor) -> torch.Tensor:
+    """J_r^{-1}(phi), closed form (IMU::InverseRightJacobianSO3)."""
+    theta = torch.linalg.norm(phi, dim=-1, keepdim=True)
+    t2 = theta * theta
+    small = theta < 1e-4
+    one = torch.ones_like(theta)
+    safe_t = torch.where(small, one, theta)
+    # 1/t^2 - (1 + cos t) / (2 t sin t)
+    coef = torch.where(
+        small, 1.0 / 12.0 + t2 / 720.0,
+        1.0 / (safe_t * safe_t)
+        - (1.0 + torch.cos(safe_t)) / (2.0 * safe_t * torch.sin(torch.where(small, one, safe_t))),
+    )
+    K = hat(phi)
+    return _eye_like(K) + 0.5 * K + coef[..., None] * (K @ K)
+
+
+def _inv_transpose3(X: torch.Tensor) -> torch.Tensor:
+    """X^{-T} of (...,3,3) matrices by cofactors (no solver, no host sync)."""
+    c0, c1, c2 = X[..., 0, :], X[..., 1, :], X[..., 2, :]
+    cof = torch.stack([torch.linalg.cross(c1, c2), torch.linalg.cross(c2, c0),
+                       torch.linalg.cross(c0, c1)], dim=-2)
+    det = torch.sum(c0 * cof[..., 0, :], dim=-1)
+    return cof / det[..., None, None]
+
+
+def normalize_rotation(R: torch.Tensor) -> torch.Tensor:
+    """The rotation nearest a near-rotation matrix (IMU::NormalizeRotation).
+
+    The JAX package takes it from an SVD, U diag(1, 1, det(U V^T)) V^T. For
+    det(R) > 0, which every product of rotations has, that is the
+    orthogonal polar factor of R, and Newton's iteration X <- (X + X^{-T})/2
+    reaches it quadratically: from a matrix a few float32 steps off SO(3),
+    three steps land within rounding of the SVD's answer. On a GPU an SVD
+    waits for the host to check its result; these cofactor products do
+    not."""
+    X = R
+    for _ in range(3):
+        X = 0.5 * (X + _inv_transpose3(X))
+    return X
 
 
 def _matvec(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -91,17 +143,18 @@ def vee(M: torch.Tensor) -> torch.Tensor:
 def mat_to_quat(R: torch.Tensor) -> torch.Tensor:
     """Rotation matrix -> quaternion (w,x,y,z), branch-free Shepperd method,
     w >= 0."""
-    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
-    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
-    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    # entries keep a trailing axis (see _sinc_coeffs_sq)
+    m00, m01, m02 = R[..., 0, 0:1], R[..., 0, 1:2], R[..., 0, 2:3]
+    m10, m11, m12 = R[..., 1, 0:1], R[..., 1, 1:2], R[..., 1, 2:3]
+    m20, m21, m22 = R[..., 2, 0:1], R[..., 2, 1:2], R[..., 2, 2:3]
     tr = m00 + m11 + m22
     # four candidate quaternions (up to scale), one per Shepperd case
-    qw = torch.stack([1.0 + tr, m21 - m12, m02 - m20, m10 - m01], dim=-1)
-    qx = torch.stack([m21 - m12, 1.0 + m00 - m11 - m22, m01 + m10, m02 + m20], dim=-1)
-    qy = torch.stack([m02 - m20, m01 + m10, 1.0 - m00 + m11 - m22, m12 + m21], dim=-1)
-    qz = torch.stack([m10 - m01, m02 + m20, m12 + m21, 1.0 - m00 - m11 + m22], dim=-1)
+    qw = torch.cat([1.0 + tr, m21 - m12, m02 - m20, m10 - m01], dim=-1)
+    qx = torch.cat([m21 - m12, 1.0 + m00 - m11 - m22, m01 + m10, m02 + m20], dim=-1)
+    qy = torch.cat([m02 - m20, m01 + m10, 1.0 - m00 + m11 - m22, m12 + m21], dim=-1)
+    qz = torch.cat([m10 - m01, m02 + m20, m12 + m21, 1.0 - m00 - m11 + m22], dim=-1)
     cases = torch.stack([qw, qx, qy, qz], dim=-2)  # (...,4,4)
-    scores = torch.stack([tr, m00 - m11 - m22, m11 - m00 - m22, m22 - m00 - m11], dim=-1)
+    scores = torch.cat([tr, m00 - m11 - m22, m11 - m00 - m22, m22 - m00 - m11], dim=-1)
     idx = torch.argmax(scores, dim=-1)  # first of ties, as jnp.argmax
     q = torch.gather(cases, -2, idx[..., None, None].expand(idx.shape + (1, 4)))[..., 0, :]
     q = q / torch.clamp_min(torch.linalg.norm(q, dim=-1, keepdim=True), 1e-12)
@@ -111,10 +164,9 @@ def mat_to_quat(R: torch.Tensor) -> torch.Tensor:
 def so3_log(R: torch.Tensor) -> torch.Tensor:
     """Log map (...,3,3) -> (...,3) through the quaternion (stable near pi)."""
     q = mat_to_quat(R)
-    w, v = q[..., 0], q[..., 1:]
-    n = torch.linalg.norm(v, dim=-1)
+    w, v = q[..., :1], q[..., 1:]
+    n = torch.linalg.norm(v, dim=-1, keepdim=True)
     theta = 2.0 * torch.atan2(n, w)
     small = n < 1e-6
     safe_n = torch.where(small, torch.ones_like(n), n)
-    scale = torch.where(small, 2.0 / torch.clamp_min(w, 1e-6), theta / safe_n)
-    return scale[..., None] * v
+    return torch.where(small, 2.0 / torch.clamp_min(w, 1e-6), theta / safe_n) * v

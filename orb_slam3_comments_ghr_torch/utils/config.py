@@ -2,9 +2,8 @@
 src/Settings.cc — same knobs, dataclass form; YAML ingestion in io.config).
 
 Copied unchanged from `orb_slam3_comments_ghr_tpu/utils/config.py`, so the
-port needs no JAX. The port runs the monocular visual path only: `SLAM`
-raises NotImplementedError for the other sensors, loop closing and async
-mapping."""
+port needs no JAX. The port runs all six sensors; `SLAM` raises
+NotImplementedError for loop closing and async mapping."""
 
 from __future__ import annotations
 

@@ -252,6 +252,58 @@ def render_features(world: World, cam, R_cw: np.ndarray, t_cw: np.ndarray, n_fea
     ), ids
 
 
+def vi_sequence(n_frames: int, cam_hz: float = 20.0, imu_hz: float = 200.0, radius: float = 2.0,
+                look_at=(0.0, 0.0, 10.0), arc: float = 0.8, gravity_tilt=(0.15, -0.1)):
+    """Camera poses and consistent IMU samples along a smooth analytic arc
+    (the JAX package's `vi_sequence`, the same arithmetic, so the same
+    rows). The world is not gravity-aligned: gravity points along
+    R_tilt (0, 0, -g), so the IMU initialization has work to do. Body
+    frame == camera frame (Tbc = I). Returns (poses, imu_rows (M,7),
+    timestamps)."""
+    from ..ops import lie
+    from ..optim.imu import GRAVITY
+
+    look = np.asarray(look_at, np.float64)
+    T_total = n_frames / cam_hz
+
+    def pose_at(t):
+        a = arc * 2 * np.pi * t / T_total
+        c = np.array([radius * np.sin(a), 0.3 * np.sin(2 * a), 0.2 * np.sin(3 * a)])
+        fwd = look - c
+        fwd = fwd / np.linalg.norm(fwd)
+        right = np.cross(fwd, np.array([0.0, -1.0, 0.0]))
+        right /= np.linalg.norm(right)
+        down = np.cross(fwd, right)
+        return np.stack([right, down, fwd], axis=1), c
+
+    # the JAX package takes these two maps in float32 (its so3_exp / so3_log
+    # on float32 arrays); the port's on float32 CPU tensors give the same bits
+    R_tilt = lie.so3_exp(torch.tensor([gravity_tilt[0], gravity_tilt[1], 0.0])).numpy()
+    g_world = R_tilt @ np.array([0.0, 0.0, -GRAVITY])
+
+    poses = []
+    for i in range(n_frames):
+        R_wc, c = pose_at(i / cam_hz)
+        R_cw = R_wc.T
+        poses.append((R_cw.astype(np.float32), (-R_cw @ c).astype(np.float32)))
+
+    # IMU at imu_hz by central differences of the analytic pose
+    h = 1e-4
+    ts, f_bs, dRs = [], [], []
+    for j in range(1, int(T_total * imu_hz)):
+        t = j / imu_hz
+        R0, c0 = pose_at(t - h)
+        R1, c1 = pose_at(t)
+        R2, c2 = pose_at(t + h)
+        a_w = (c2 - 2 * c1 + c0) / (h * h)
+        ts.append(t)
+        f_bs.append(R1.T @ (a_w - g_world))
+        dRs.append(R1.T @ R2)  # body-frame increment over h
+    w_b = lie.so3_log(torch.from_numpy(np.asarray(dRs, np.float32))).numpy() / h
+    rows = np.concatenate([np.asarray(ts)[:, None], np.asarray(f_bs), w_b], axis=1)
+    return poses, rows, [i / cam_hz for i in range(n_frames)]
+
+
 def gt_trajectory(poses) -> list:
     """(timestamp, 4x4 Tcw) per pose, at 20 Hz."""
     out = []

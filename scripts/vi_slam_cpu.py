@@ -1,0 +1,137 @@
+"""Visual-inertial SLAM of either package on the CPU, on the sequences of
+`chip_smoke.py` phases 7 and 8.
+
+- `--sensor imu_stereo` (phase 7): 150 frames of `vi_sequence(150)`, left
+  and right views rendered from `make_textured_scene(7)` (a rectified rig,
+  t_r = t - [b, 0, 0], as `bench.py` renders its stereo-inertial input),
+  EuRoC cam0 (752x480, bf 47.906), `SlamConfig(sensor=IMU_STEREO,
+  n_features=1024, local_points_cap=4096, local_ba_points=2048,
+  max_frames_between_kf=10, min_init_matches=60)` (the stereo-inertial
+  pass of `bench.py`), loop closing and asynchronous mapping off.
+- `--sensor imu_rgbd` (phase 8): 60 frames of `vi_sequence(60)` over
+  `make_textured_scene(61)` with the exact depth map, the configuration of
+  `tests/test_rgbd_inertial.py`.
+
+Both use the near-ideal IMU calibration of `bench.py` (noise 1e-4 / 1e-3,
+walk 1e-6 / 1e-5) and feed each frame the IMU rows in (t_{i-1}, t_i].
+
+    python scripts/vi_slam_cpu.py --package jax|torch --sensor imu_stereo|imu_rgbd \\
+        [--frames N] [--stereo-count once|twice] [--threads 4]
+
+`--stereo-count twice` runs the JAX package's keyframe decision with the
+count of stereo observations the port uses (see scripts/depth_slam_cpu.py).
+
+Prints one line per frame (state, keyframes, points, IMU initialized) and
+a JSON line: the first tracked frame, the frame of the IMU initialization,
+whether VIBA1 ran, tracked frames, keyframes, map points, and the metric
+ATE (no scale fit) of `SLAM.trajectory()`.
+"""
+
+import argparse
+import json
+import os
+import sys
+import time
+
+import numpy as np
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+
+# (scene seed, frames, config) of each sensor
+SETUPS = {
+    "imu_stereo": (7, 150, dict(n_features=1024, local_points_cap=4096, local_ba_points=2048,
+                                max_frames_between_kf=10, min_init_matches=60)),
+    "imu_rgbd": (61, 60, dict(n_features=768, local_points_cap=2048, local_ba_points=2048,
+                              max_frames_between_kf=5)),
+}
+NOISE = dict(noise_g=1e-4, noise_a=1e-3, walk_g=1e-6, walk_a=1e-5)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--package", choices=("jax", "torch"), required=True)
+    ap.add_argument("--sensor", choices=tuple(SETUPS), required=True)
+    ap.add_argument("--frames", type=int, default=None)
+    ap.add_argument("--stereo-count", choices=("once", "twice"), default="once",
+                    help="JAX package only: how its keyframe decision counts stereo observations")
+    ap.add_argument("--threads", type=int, default=4, help="torch CPU threads")
+    args = ap.parse_args(argv)
+
+    # the scene, the IMU sequence and the depth map are the port's numpy
+    # copies, bit-equal to the JAX package's (tests/test_torch_synthetic.py)
+    from orb_slam3_comments_ghr_torch.utils import evaluation, synthetic
+
+    if args.package == "jax":
+        import jax
+        import jax.numpy as jnp
+
+        jax.config.update("jax_platforms", "cpu")
+        from orb_slam3_comments_ghr_tpu.ops import cameras
+        from orb_slam3_comments_ghr_tpu.optim import imu as imu_mod
+        from orb_slam3_comments_ghr_tpu.pipeline import tracker as jtracker
+        from orb_slam3_comments_ghr_tpu.system import SLAM
+        from orb_slam3_comments_ghr_tpu.utils import config
+
+        if args.stereo_count == "twice":
+            from depth_slam_cpu import _stereo_count_twice
+
+            _stereo_count_twice(jtracker)
+        calib = imu_mod.ImuCalib(Rbc=jnp.eye(3), tbc=jnp.zeros(3), **NOISE)
+        make = lambda cfg: SLAM(cameras.euroc_cam0(), cfg, imu_calib=calib)
+    else:
+        import torch
+
+        torch.set_num_threads(args.threads)
+        from orb_slam3_comments_ghr_torch.ops import cameras
+        from orb_slam3_comments_ghr_torch.optim import imu as imu_mod
+        from orb_slam3_comments_ghr_torch.system import SLAM
+        from orb_slam3_comments_ghr_torch.utils import config
+
+        calib = imu_mod.ImuCalib(Rbc=np.eye(3, dtype=np.float32), tbc=np.zeros(3, np.float32),
+                                 **NOISE)
+        make = lambda cfg: SLAM(cameras.euroc_cam0(), cfg, imu_calib=calib, device="cpu")
+
+    seed, n, widths = SETUPS[args.sensor]
+    n = args.frames or n
+    cam = cameras.euroc_cam0()
+    scene = synthetic.make_textured_scene(seed)
+    poses, imu_rows, times = synthetic.vi_sequence(SETUPS[args.sensor][1])
+    stereo = args.sensor == "imu_stereo"
+    slam = make(config.SlamConfig(sensor=config.IMU_STEREO if stereo else config.IMU_RGBD,
+                                  enable_loop_closing=False, **widths))
+    u8 = lambda img: np.clip(np.round(img), 0, 255).astype(np.uint8)
+    b = np.array([cam.bf / cam.fx, 0.0, 0.0], np.float32)
+    tracked, first, imu_init_frame = 0, None, None
+    t0 = time.time()
+    for i in range(n):
+        R, t = poses[i]
+        chunk = imu_rows[(imu_rows[:, 0] > (times[i - 1] if i else -1.0))
+                         & (imu_rows[:, 0] <= times[i])]
+        rows = chunk if len(chunk) else None
+        img = u8(synthetic.render_image(scene, cam, R, t))
+        if stereo:
+            pose = slam.track_stereo(img, u8(synthetic.render_image(scene, cam, R, t - b)),
+                                     times[i], imu_samples=rows)
+        else:
+            pose = slam.track_rgbd(img, synthetic.depth_map(scene, cam, R, t), times[i],
+                                   imu_samples=rows)
+        if pose is not None:
+            first = i if first is None else first
+            tracked += 1
+        init = bool(slam.map.map_imu_init.get(slam.map.active_map, False))
+        if init and imu_init_frame is None:
+            imu_init_frame = i
+        print(i, slam.state, slam.n_keyframes(), slam.n_map_points(), init,
+              f"{time.time() - t0:.1f}s", flush=True)
+    gt = [(times[i], np.vstack([np.hstack([poses[i][0], poses[i][1][:, None]]), [0, 0, 0, 1]])
+           .astype(np.float32)) for i in range(n)]
+    print(json.dumps(dict(
+        package=args.package, sensor=args.sensor, stereo_count=args.stereo_count, frames=n,
+        first_tracked=first, imu_init_frame=imu_init_frame, viba1=bool(slam.mapper.viba1_done), tracked=tracked,
+        keyframes=slam.n_keyframes(), points=slam.n_map_points(),
+        ate_trajectory_m=evaluation.ate_rmse(slam.trajectory(), gt, with_scale=False))))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

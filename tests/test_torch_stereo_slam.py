@@ -8,7 +8,7 @@ package:
 - the tracker alone: the map that `_initialize_stereo` seeds from depth, the
   close-point census and `_need_new_kf` on stereo inputs;
 - one `process_keyframe` on a stereo map;
-- `SLAM.track_stereo` and `track_rgbd` on images, and the sensor rules.
+- `SLAM.track_stereo` and `track_rgbd` on images.
 The image-mode RGB-D twin of `tests/test_rgbd.py` is
 `tests/test_torch_rgbd_slam.py`.
 
@@ -32,7 +32,6 @@ same keyframes kept, map points within 2 %, keyframe centres within 1 mm and
 rotations within 0.05 degree of JAX's."""
 
 import contextlib
-import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -189,7 +188,7 @@ def test_jax_package_never_counts_a_lone_stereo_view(ring_runs):
     tt.track(tf, 0.0)
     jt.track(jf, 0.0)
     # 150 of the 512 first-keyframe points tracked: under 0.4 of them
-    assert tt._need_new_kf(150) and not jt._need_new_kf(150, 1.0)
+    assert tt._need_new_kf(150, 1.0) and not jt._need_new_kf(150, 1.0)
 
 
 def _trackers(map_arrays=None, **changes):
@@ -256,7 +255,7 @@ def _kf_decisions(tt, jt):
                 tt.frames_since_kf = jt.frames_since_kf = since
                 with _jax_counts_stereo_twice():
                     decision = jt._need_new_kf(n_inl, 1.0, n_ct, n_cu)
-                out.append((tt._need_new_kf(n_inl, n_ct, n_cu), decision))
+                out.append((tt._need_new_kf(n_inl, 1.0, n_ct, n_cu), decision))
     return out
 
 
@@ -336,16 +335,3 @@ def test_stereo_and_rgbd_entry_points_run():
     slam = tsystem.SLAM(TCAM, tconfig.SlamConfig(**dict(CFG, sensor=tconfig.RGBD)), device="cpu")
     assert slam.track_rgbd(img_l, tsynthetic.depth_map(scene, TCAM, R, t), 0.0) is not None
     assert slam.state == "OK" and slam.n_map_points() > 500
-
-
-@pytest.mark.parametrize("sensor", [tconfig.IMU_STEREO, tconfig.IMU_RGBD])
-def test_inertial_stereo_and_rgbd_still_raise(sensor):
-    cfg = dataclasses.replace(tconfig.SlamConfig(**CFG), sensor=sensor)
-    with pytest.raises(NotImplementedError):
-        tsystem.SLAM(TCAM, cfg, device="cpu")
-    slam = tsystem.SLAM(TCAM, tconfig.SlamConfig(**CFG), device="cpu")
-    img = np.zeros((480, 752), np.uint8)
-    with pytest.raises(NotImplementedError):
-        slam.track_stereo(img, img, 0.0, imu_samples=np.zeros((1, 7)))
-    with pytest.raises(NotImplementedError):
-        slam.track_rgbd(img, np.zeros((480, 752), np.float32), 0.0, imu_samples=np.zeros((1, 7)))

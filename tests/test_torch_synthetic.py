@@ -1,6 +1,6 @@
-"""The port's numpy scene, renderer, trajectory and depth map against the
-JAX package's (bit for bit), the `convert` round trips, the keyframe map
-builder, and the rule that the port imports no JAX."""
+"""The port's numpy scene, renderer, trajectory, depth map and IMU sequence
+against the JAX package's (bit for bit), the `convert` round trips, the
+keyframe map builder, and the rule that the port imports no JAX."""
 
 import os
 import re
@@ -67,6 +67,17 @@ def test_render_features_stereo_equal(frame):
     assert (back["depth"][back["valid"]] > 0).all() and (back["u_right"][back["valid"]] > 0).all()
 
 
+@pytest.mark.parametrize("n", [70, 150])
+def test_vi_sequence_equal(n):
+    """Poses, IMU rows and timestamps of `vi_sequence`, bit for bit."""
+    (tp, trows, ttimes), (jp, jrows, jtimes) = tsynthetic.vi_sequence(n), jsynthetic.vi_sequence(n)
+    np.testing.assert_array_equal(trows, jrows)
+    assert trows.dtype == jrows.dtype and ttimes == jtimes
+    for (Rt, tt), (Rj, tj) in zip(tp, jp):
+        np.testing.assert_array_equal(Rt, Rj)
+        np.testing.assert_array_equal(tt, tj)
+
+
 def test_convert_round_trips():
     cam = jcameras.euroc_cam0()
     assert convert.camera_from_jax(cam) == tcameras.euroc_cam0()
@@ -125,6 +136,8 @@ def test_port_imports_without_jax():
         "import orb_slam3_comments_ghr_torch.retrieval.database\n"
         "import orb_slam3_comments_ghr_torch.frontend.stereo, orb_slam3_comments_ghr_torch.frontend.clahe\n"
         "import orb_slam3_comments_ghr_torch.io.rectify\n"
+        "import orb_slam3_comments_ghr_torch.optim.imu, orb_slam3_comments_ghr_torch.optim.inertial\n"
+        "import orb_slam3_comments_ghr_torch.optim.vi_ba, orb_slam3_comments_ghr_torch.pipeline.imu_frontend\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "import chip_smoke\n"
@@ -135,7 +148,7 @@ def test_port_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 42
+    assert int(out.stdout.strip()) >= 46
     imports = re.compile(r"^\s*(import|from)\s+(jax|orb_slam3_comments_ghr_tpu)\b", re.M)
     for path in [*PORT.rglob("*.py"), REPO / "chip_smoke.py"]:
         assert not imports.search(path.read_text()), path
