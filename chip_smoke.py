@@ -1,6 +1,6 @@
 """Run the PyTorch port on a CUDA card: the window-match kernel against
-its plain version, the per-frame tracking program, and monocular, stereo,
-RGB-D and visual-inertial SLAM end to end.
+its plain version, the per-frame tracking program, monocular, stereo,
+RGB-D and visual-inertial SLAM end to end, and loop closing.
 
     python3 chip_smoke.py [--save-caller-inputs FILE]
 
@@ -38,9 +38,17 @@ inertial keyframe rule, the IMU initialization (gravity alignment of the
 map, VI-BA) and inertial local BA, checked against ground truth, with the
 per-frame and per-stage times; phase 8 RGB-D-inertial `track_rgbd` (60
 frames), phase 9 mono-inertial `track_features` on rendered features (80
-frames), each to its test's bars. Phases 4-9 each count the window match's
-launches from 0 and record its arguments on one call of each caller; after
-them, phase 1 holds the kernel against the plain version on those calls
+frames), each to its test's bars. Phase 10 runs `SLAM` with loop closing
+on: (a) the feature loop of tests/test_loopclosing.py, (b) the kidnap and
+merge of tests/test_merge.py, (c) the image-level loop of
+tests/test_image_loopclosing.py (150 rendered 752x480 frames through
+`track_monocular`, the loop closer's stages timed in the run and on the
+inputs of the keyframe that closed the loop, with its host syncs), each to
+its test's bars, and (d) the whole-map BA on phase 4's final map (its cost
+must not rise) and on a copy with seeded noise (it must remove the noise). Phases 4-10 each count the window match's
+launches from 0 (the loop closer's projection counts and fuses apart from
+the mapper's fuse) and record its arguments on one call of each caller;
+after them, phase 1 holds the kernel against the plain version on those calls
 and times it there (`--save-caller-inputs` also writes them to FILE for
 `orb_slam3_comments_ghr_torch/utils/time_window_match.py`). Any failure
 raises. The last lines are the card's name and power limit, a JSON line of
@@ -53,6 +61,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import copy
 import json
 import subprocess
 import sys
@@ -357,15 +366,17 @@ def phase3_against_cpu(device, frame, pts, pose):
 PHASE4_FRAMES = 120
 
 
-def _count_calls(module, name: str, counts: dict, key: str, active: list):
+def _count_calls(module, name: str, counts: dict, key, active: list):
     """Replace module.name by a wrapper that counts its calls under `key`
-    and keeps `key` on the stack `active` during the call; returns the
-    original, to put back."""
+    (a string, or a function giving it at each call) and keeps that key on
+    the stack `active` during the call; returns the original, to put
+    back."""
     fn = getattr(module, name)
 
     def counted(*args, **kwargs):
-        counts[key] += 1
-        active.append(key)
+        k = key() if callable(key) else key
+        counts[k] += 1
+        active.append(k)
         try:
             return fn(*args, **kwargs)
         finally:
@@ -398,10 +409,12 @@ def _recording(fn, calls: dict, active: list, recorded: dict, record_at: dict, p
 
 
 def _count_matchers(wm_mod, calls: dict, active: list, recorded: dict, record_at: dict,
-                    prefix: str = ""):
-    """Count the calls of the window match's three callers (tracking, init,
-    fuse) in `calls`, and record its arguments as `_recording` says.
-    Returns what to put back: (module, name, original) triples."""
+                    prefix: str = "", fuse_key="fuse"):
+    """Count the calls of the window match's callers (tracking, init, and
+    `programs.fuse_project` under `fuse_key`: "fuse", or a function that
+    names the loop closer's callers) in `calls`, and record its arguments
+    as `_recording` says. Returns what to put back: (module, name,
+    original) triples."""
     from orb_slam3_comments_ghr_torch.ops import matching
     from orb_slam3_comments_ghr_torch.pipeline import programs
 
@@ -410,7 +423,7 @@ def _count_matchers(wm_mod, calls: dict, active: list, recorded: dict, record_at
          _count_calls(programs, "track_against_points", calls, "tracking", active)),
         (matching, "search_for_initialization",
          _count_calls(matching, "search_for_initialization", calls, "init", active)),
-        (programs, "fuse_project", _count_calls(programs, "fuse_project", calls, "fuse", active)),
+        (programs, "fuse_project", _count_calls(programs, "fuse_project", calls, fuse_key, active)),
     ]
     # where the callers look the window match up: programs' global, and the
     # module attribute that search_for_initialization imports at each call
@@ -629,7 +642,9 @@ def second_inputs(seq, mode: str) -> list:
 def phase_depth_slam(wm_mod, seq, second, mode: str):
     """`SLAM.track_stereo` (phase 5) or `SLAM.track_rgbd` (phase 6) over
     frames 0..119 (20 Hz timestamps) at the default, full-width
-    configuration, loop closing off. Fails unless the run initializes on
+    configuration, loop closing on (the loop closer runs after each
+    keyframe and stops at its 12-keyframe gate: these maps have fewer).
+    Fails unless the run initializes on
     frame 0, tracks >= 90 % of the frames, ends with >= 3 keyframes and a
     metric ATE (no scale fit) under ATE_BAR, never calls the two-view init,
     and the window match launched once per tracking and fuse call. Returns
@@ -641,8 +656,7 @@ def phase_depth_slam(wm_mod, seq, second, mode: str):
 
     frames, _, poses = seq
     sensor = config.STEREO if mode == "stereo" else config.RGBD
-    slam = SLAM(cameras.euroc_cam0(), config.SlamConfig(sensor=sensor, enable_loop_closing=False),
-                device="cuda")
+    slam = SLAM(cameras.euroc_cam0(), config.SlamConfig(sensor=sensor), device="cuda")
     track = slam.track_stereo if mode == "stereo" else slam.track_rgbd
     calls = {"tracking": 0, "init": 0, "fuse": 0}
     active, recorded = [], {}
@@ -1219,6 +1233,479 @@ def phase9_mono_inertial(wm_mod, device):
                                  ate_sim3_m=scaled, ate_metric_m=metric)
 
 
+PHASE10_FEATURE_FRAMES = 160
+PHASE10_IMAGE_FRAMES = 150
+# the loop closer's window-match callers, both through programs.fuse_project:
+# run (c) keeps the arguments of the last projection count and of the first
+# fuse of the loop correction (into the keyframe that closed the loop), for
+# phase 1
+RECORD_AT_LOOP = {"loop_count": None, "loop_fuse": 1}
+LOOP_CALLERS = (("_count_projection_matches", "loop_count"), ("_fuse_points_into", "loop_fuse"))
+# the loop closer's stages timed in run (c), with the whole-map BA
+LOOP_STAGES = ("_detect", "_verify_sim3", "_count_projection_matches", "_correct_loop",
+               "_optimize_essential_graph", "_fuse_points_into")
+
+
+def _count_loop_matchers(wm_mod, slam, calls: dict, recorded: dict, record_at: dict):
+    """`_count_matchers` for a SLAM with loop closing: a fuse_project call
+    made inside the loop closer's `_count_projection_matches` or
+    `_fuse_points_into` counts under "loop_count" / "loop_fuse", any other
+    under "fuse". Returns (originals, a function that puts everything
+    back)."""
+    ctx, active = [], []
+    originals = _count_matchers(wm_mod, calls, active, recorded, record_at,
+                                fuse_key=lambda: ctx[-1] if ctx else "fuse")
+    lc = slam.loopcloser
+    for name, key in LOOP_CALLERS:
+        fn = getattr(lc, name)
+
+        def in_ctx(*args, _fn=fn, _key=key):
+            ctx.append(_key)
+            try:
+                return _fn(*args)
+            finally:
+                ctx.pop()
+
+        setattr(lc, name, in_ctx)
+
+    def restore():
+        for module, name, fn in originals:
+            setattr(module, name, fn)
+        for name, _ in LOOP_CALLERS:
+            vars(lc).pop(name, None)
+
+    return restore
+
+
+def _loop_cfg(**widths):
+    from orb_slam3_comments_ghr_torch.utils.config import SlamConfig
+
+    return SlamConfig(max_frames_between_kf=5, **widths)
+
+
+def _check_launches(tag: str, launches: int, calls: dict):
+    print(f"{tag} window_match launches {launches}; matcher calls "
+          + ", ".join(f"{k} {v}" for k, v in calls.items()))
+    if launches != sum(calls.values()):
+        raise AssertionError(f"{tag}: {launches} launches for {sum(calls.values())} matcher calls")
+
+
+def phase10_feature_loop(wm_mod, device):
+    """Run (a), the loop of tests/test_loopclosing.py through the port with
+    loop closing on: 160 frames of 512 rendered features (ring world 13,
+    an outward circle of 1.06 turns, 0.7 px noise), `track_features`.
+    Fails unless a loop or merge closes, > 70 poses come back, the
+    Sim(3)-aligned ATE is < 8 cm, every point is finite, and the window match
+    launched once per matcher call."""
+    from orb_slam3_comments_ghr_torch.ops import cameras
+    from orb_slam3_comments_ghr_torch.system import SLAM
+    from orb_slam3_comments_ghr_torch.utils import evaluation, synthetic
+
+    cam = cameras.euroc_cam0()
+    world = synthetic.make_ring_world(13)
+    poses = synthetic.circular_trajectory(PHASE10_FEATURE_FRAMES, arc=1.06, outward=True)
+    feats = [synthetic.render_features(world, cam, R, t, n_feat=512, seed=1300 + i, noise_px=0.7,
+                                       device=device)[0] for i, (R, t) in enumerate(poses)]
+    slam = SLAM(cam, _loop_cfg(n_features=512, local_points_cap=2048, local_ba_points=2048,
+                               min_init_matches=60), device=device)
+    calls = {"tracking": 0, "init": 0, "fuse": 0, "loop_count": 0, "loop_fuse": 0}
+    restore = _count_loop_matchers(wm_mod, slam, calls, {}, {})
+    torch.cuda.synchronize()
+    wm_mod.launches = 0
+    try:
+        est = []
+        for i in range(PHASE10_FEATURE_FRAMES):
+            pose = slam.track_features(feats[i], i * 0.05)
+            if pose is not None:
+                est.append((i * 0.05, pose))
+        torch.cuda.synchronize()
+        launches = wm_mod.launches
+    finally:
+        restore()
+    lc = slam.loopcloser
+    ate = evaluation.ate_rmse(est, synthetic.gt_trajectory(poses), with_scale=True)
+    finite = bool(np.isfinite(slam.map.mp_pos[slam.map.mp_ids()]).all())
+    print(f"phase10 (a) feature loop {PHASE10_FEATURE_FRAMES} frames: poses {len(est)}, loops "
+          f"{lc.n_loops}, merges {lc.n_merges}, keyframes {slam.n_keyframes()}, map points "
+          f"{slam.n_map_points()}, Sim(3)-aligned ATE {ate * 1e3:.3f} mm, points finite {finite}, "
+          f"state {slam.state}")
+    _check_launches("phase10 (a)", launches, calls)
+    if lc.n_loops + lc.n_merges < 1 or len(est) <= 70 or not ate < 0.08 or not finite:
+        raise AssertionError("phase10 (a): no loop or merge, <= 70 poses, ATE >= 8 cm, or "
+                             "a non-finite point")
+    if calls["loop_count"] == 0 or calls["loop_fuse"] == 0:
+        raise AssertionError("phase10 (a): a loop-closer caller never ran")
+    return launches, calls, dict(poses=len(est), loops=lc.n_loops, merges=lc.n_merges, ate_m=ate,
+                                 keyframes=slam.n_keyframes(), points=slam.n_map_points())
+
+
+def phase10_merge(wm_mod, device):
+    """Run (b), the kidnap of tests/test_merge.py: ring world 23, frames
+    0-59, 14 blank frames (a new sub-map opens), then poses 5-55 again.
+    Fails unless >= 4 keyframes precede the kidnap, >= 2 maps follow it,
+    > 20 returned frames are tracked, and the sub-map is merged back or the
+    tracker relocalizes into map 0; and the window match launched once per
+    matcher call."""
+    from orb_slam3_comments_ghr_torch.frontend.types import empty_features
+    from orb_slam3_comments_ghr_torch.ops import cameras
+    from orb_slam3_comments_ghr_torch.system import SLAM
+    from orb_slam3_comments_ghr_torch.utils import synthetic
+
+    cam = cameras.euroc_cam0()
+    world = synthetic.make_ring_world(23)
+    poses = synthetic.circular_trajectory(160, arc=1.0, outward=True)
+    render = lambda i, seed: synthetic.render_features(world, cam, *poses[i], n_feat=512, seed=seed,
+                                                       device=device)[0]
+    first = [render(i, 2300 + i) for i in range(60)]
+    again = [render(i, 9300 + i) for i in range(5, 56)]
+    slam = SLAM(cam, _loop_cfg(n_features=512, local_points_cap=2048, local_ba_points=2048,
+                               min_init_matches=60, recently_lost_secs=0.4, loop_min_kfs=8),
+                device=device)
+    calls = {"tracking": 0, "init": 0, "fuse": 0, "loop_count": 0, "loop_fuse": 0}
+    restore = _count_loop_matchers(wm_mod, slam, calls, {}, {})
+    torch.cuda.synchronize()
+    wm_mod.launches = 0
+    try:
+        for i, f in enumerate(first):
+            slam.track_features(f, i * 0.05)
+        kfs_before = slam.n_keyframes()
+        blank = empty_features(512, device=device)
+        for j in range(14):
+            slam.track_features(blank, 3.0 + j * 0.05)
+        maps = slam.map.n_maps
+        tracked = sum(slam.track_features(f, 4.0 + j * 0.05) is not None
+                      for j, f in enumerate(again))
+        torch.cuda.synchronize()
+        launches = wm_mod.launches
+    finally:
+        restore()
+    lc = slam.loopcloser
+    print(f"phase10 (b) kidnap and merge: keyframes before the kidnap {kfs_before}, maps after it "
+          f"{maps}, returned frames tracked {tracked}/{len(again)}, merges {lc.n_merges}, loops "
+          f"{lc.n_loops}, active map {slam.map.active_map} of {slam.map.n_maps}")
+    _check_launches("phase10 (b)", launches, calls)
+    if kfs_before < 4 or maps < 2 or tracked <= 20:
+        raise AssertionError("phase10 (b): < 4 keyframes, no new sub-map, or <= 20 frames tracked")
+    if not (lc.n_merges >= 1 or slam.map.active_map == 0):
+        raise AssertionError("phase10 (b): neither merged nor relocalized into map 0")
+    return launches, calls, dict(kfs_before=kfs_before, maps_after_kidnap=maps, tracked=tracked,
+                                 merges=lc.n_merges, active_map=int(slam.map.active_map))
+
+
+def _snapshot_db(db):
+    """A copy of a keyframe database's state (the vocabulary shared)."""
+    out = copy.copy(db)
+    out.present = db.present.copy()
+    for k in ("kf_words", "kf_weights", "kf_word", "kf_node"):
+        setattr(out, k, dict(getattr(db, k)))
+    out.inv = {w: list(v) for w, v in db.inv.items()}
+    return out
+
+
+def _loop_replayer(cam, cfg, snap, device):
+    """A function making a LoopCloser (with its mapper) on a fresh copy of
+    the map `snap["map"]` and a copy of the database, pending hypotheses and
+    generator state of `snap`."""
+    from orb_slam3_comments_ghr_torch import convert
+    from orb_slam3_comments_ghr_torch.pipeline.loopcloser import LoopCloser
+    from orb_slam3_comments_ghr_torch.pipeline.mapper import LocalMapper
+
+    def make():
+        m = convert.map_state_from_numpy(snap["map"])
+        db = _snapshot_db(snap["db"]) if snap.get("db") is not None else None
+        lc = LoopCloser(cam, cfg, m, db, LocalMapper(cam, cfg, m, kfdb=db, device=device),
+                        device=device)
+        lc._pendings = copy.deepcopy(snap.get("pendings", []))
+        if "generator" in snap:
+            lc.generator.set_state(snap["generator"])
+        return lc
+
+    return make
+
+
+def phase10_image_loop(wm_mod, device):
+    """Run (c), the image-level loop of tests/test_image_loopclosing.py:
+    150 EuRoC cam0 frames (752x480) rendered in room scene 33 along a full
+    outward circle, `track_monocular` with that test's configuration (768
+    features, local map 2048, local BA 1024 points): the full front end,
+    local mapping and the loop closer. Fails unless > 75 % of the frames
+    are tracked, one map remains, a loop closes, the Sim(3)-aligned ATE of
+    `trajectory()` is < 15 cm, and the window match launched once per
+    matcher call. Times per-frame host ms, the loop closer's stages in the
+    run, and each stage's device ms and kernels on its inputs in the
+    keyframe that closed the loop (replayed, with the host syncs of that
+    keyframe counted). Returns (launches, calls, recorded arguments,
+    results, stage times)."""
+    from orb_slam3_comments_ghr_torch import convert
+    from orb_slam3_comments_ghr_torch.ops import cameras
+    from orb_slam3_comments_ghr_torch.system import SLAM
+    from orb_slam3_comments_ghr_torch.utils import evaluation, gt_replay, synthetic
+
+    cam = cameras.euroc_cam0()
+    poses = synthetic.circular_trajectory(PHASE10_IMAGE_FRAMES, arc=1.0, outward=True)
+    centers = np.stack([-R.T @ t for R, t in poses])
+    scene = gt_replay.make_room_scene(33, centers, margin=4.0, span=20.0)
+    t0 = time.perf_counter()
+    frames = [gt_replay.render_room(scene, cam, R, t) for R, t in poses]
+    print(f"phase10 (c) rendered {len(frames)} room frames in {time.perf_counter() - t0:.1f} s")
+    cfg = _loop_cfg(n_features=768, local_points_cap=2048, local_ba_points=1024,
+                    min_init_matches=50)
+    slam = SLAM(cam, cfg, device=device)
+    lc, mapper = slam.loopcloser, slam.mapper
+    calls = {"tracking": 0, "init": 0, "fuse": 0, "loop_count": 0, "loop_fuse": 0}
+    recorded = {}
+    restore = _count_loop_matchers(wm_mod, slam, calls, recorded, RECORD_AT_LOOP)
+    stage_ms = {k: [] for k in (*LOOP_STAGES, "mapper.global_ba")}
+    wrapped = []
+
+    def host_timed(obj, name, key):
+        fn = getattr(obj, name)
+
+        def timed(*args, **kwargs):
+            box = {}
+            stage_ms[key].append(host_ms(lambda: box.update(out=fn(*args, **kwargs))))
+            return box["out"]
+
+        setattr(obj, name, timed)
+        wrapped.append((obj, name))
+
+    for name in LOOP_STAGES:
+        host_timed(lc, name, name)
+    host_timed(mapper, "global_ba", "mapper.global_ba")
+    # the state at the start of each loop-closer keyframe; the one that
+    # closed the first loop is kept for the replay (its copy time is left
+    # out of the frame's time)
+    snap, kept, copy_ms = {}, {}, [0.0]
+    process_keyframe = lc.process_keyframe
+
+    def snapshotting(kf):
+        t = time.perf_counter()
+        snap.update(kf=kf, map=convert.map_state_to_numpy(slam.map), db=_snapshot_db(slam.kfdb),
+                    pendings=copy.deepcopy(lc._pendings), generator=lc.generator.get_state())
+        copy_ms[0] += (time.perf_counter() - t) * 1e3
+        closed = process_keyframe(kf)
+        if closed and not kept:
+            kept.update(snap)
+        return closed
+
+    lc.process_keyframe = snapshotting
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wm_mod.launches = 0
+    try:
+        est, plain_ms, loop_ms, init_frame = [], [], [], None
+        for i, img in enumerate(frames):
+            box, loops = {}, lc.n_loops
+            copy_ms[0] = 0.0
+            ms = host_ms(lambda: box.update(pose=slam.track_monocular(img, i * 0.05))) - copy_ms[0]
+            if box["pose"] is not None:
+                if not np.isfinite(box["pose"]).all():
+                    raise AssertionError(f"image loop frame {i}: non-finite pose")
+                init_frame = i if init_frame is None else init_frame
+                est.append((i * 0.05, box["pose"]))
+            if lc.n_loops > loops:
+                loop_ms.append(ms)
+            elif init_frame is not None and i > init_frame and slam.tracker.pending_kf is None:
+                plain_ms.append(ms)
+        torch.cuda.synchronize()
+        launches = wm_mod.launches
+    finally:
+        restore()
+        for obj, name in wrapped:
+            vars(obj).pop(name, None)
+        del lc.process_keyframe
+    peak = torch.cuda.max_memory_allocated()
+    ate = evaluation.ate_rmse(slam.trajectory(), synthetic.gt_trajectory(poses), with_scale=True)
+    n = PHASE10_IMAGE_FRAMES
+    print(f"phase10 (c) image loop {n} frames: initialized at frame {init_frame}, tracked "
+          f"{len(est)}/{n}, maps {slam.map.n_maps}, loops {lc.n_loops}, merges {lc.n_merges}, "
+          f"keyframes {slam.n_keyframes()}, map points {slam.n_map_points()}, Sim(3)-aligned ATE "
+          f"of trajectory() {ate * 1e3:.3f} mm, max_memory_allocated {peak / 2**20:.1f} MiB")
+    print(f"phase10 (c) track_monocular host ms on {len(plain_ms)} frames without a keyframe "
+          f"(median / p75): {np.median(plain_ms):.3f} / {np.percentile(plain_ms, 75):.3f}; on the "
+          f"frames whose keyframe closed a loop: " + " / ".join(f"{v:.3f}" for v in loop_ms))
+    for key, v in stage_ms.items():
+        print(f"phase10 (c) {key} host ms in the run over {len(v)} calls (median / max): "
+              + (f"{np.median(v):.3f} / {max(v):.3f}" if v else "none"))
+    _check_launches("phase10 (c)", launches, calls)
+    if len(est) <= 0.75 * n or slam.map.n_maps != 1 or lc.n_loops < 1 or not ate < 0.15:
+        raise AssertionError(f"phase10 (c): tracked {len(est)} of {n}, {slam.map.n_maps} maps, "
+                             f"{lc.n_loops} loops, ATE {ate:.4f} m (bars > 75 %, 1, >= 1, < 15 cm)")
+    if set(RECORD_AT_LOOP) - set(recorded):
+        raise AssertionError("phase10 (c): a loop-closer caller recorded no call")
+    stages = loop_stage_times(cam, cfg, kept, device)
+    stages.update({f"{k} in the run": {"host_ms_median": float(np.median(v)) if v else None,
+                                       "calls": len(v)} for k, v in stage_ms.items()})
+    result = dict(init_frame=init_frame, tracked=len(est), maps=slam.map.n_maps,
+                  loops=lc.n_loops, merges=lc.n_merges, keyframes=slam.n_keyframes(),
+                  points=slam.n_map_points(), ate_m=ate, peak_mib=peak / 2**20,
+                  frame_ms={"plain_median": float(np.median(plain_ms)),
+                            "plain_p75": float(np.percentile(plain_ms, 75)),
+                            "loop_closing": loop_ms})
+    return launches, calls, recorded, result, stages
+
+
+def loop_stage_times(cam, cfg, kept, device) -> dict:
+    """Replay the loop closer's keyframe that closed the loop from its kept
+    state, counting its host syncs and keeping each stage's inputs (map and
+    arguments) on the way; then each stage again on its inputs: device ms
+    and kernels per call under torch.profiler (each call on a fresh copy of
+    its map: the stages change the map)."""
+    from orb_slam3_comments_ghr_torch import convert
+
+    lc = _loop_replayer(cam, cfg, kept, device)()
+    inputs = {}
+
+    def keeping(obj, name, key):
+        fn = getattr(obj, name)
+
+        def kept_fn(*args, **kwargs):
+            if key not in inputs:
+                inputs[key] = dict(map=convert.map_state_to_numpy(lc.map), db=kept["db"],
+                                   args=copy.deepcopy(args), kwargs=kwargs)
+            return fn(*args, **kwargs)
+
+        setattr(obj, name, kept_fn)
+
+    for name in LOOP_STAGES:
+        keeping(lc, name, name)
+    keeping(lc.mapper, "global_ba", "mapper.global_ba")
+    closed = {}
+    syncs = count_syncs(lambda: closed.update(out=lc.process_keyframe(kept["kf"])))
+    # a keyframe that confirms a pending hypothesis may skip the BoW
+    # detection: then _detect, and _verify_sim3 on the loop's candidate,
+    # run on the keyframe's starting map
+    if "_correct_loop" not in inputs:
+        raise AssertionError("phase10 (c): the replayed keyframe closed no loop")
+    start = dict(map=kept["map"], db=kept["db"], kwargs={})
+    inputs.setdefault("_detect", dict(start, args=(kept["kf"],)))
+    inputs.setdefault("_verify_sim3", dict(start, args=(kept["kf"],
+                                                        inputs["_correct_loop"]["args"][1])))
+    print(f"phase10 (c) replay of keyframe {kept['kf']} (closed a loop: {closed['out']}): "
+          f"{sum(syncs.values())} host syncs (set_sync_debug_mode); by line of the port: "
+          + ", ".join(f"{k} {v}" for k, v in syncs.most_common(12)))
+    print("phase10 (c) loop-closer stages on the inputs of that keyframe:")
+    out = {"syncs_per_loop_keyframe": sum(syncs.values())}
+    for key, inp in inputs.items():
+        make = _loop_replayer(cam, cfg, inp, device)
+
+        def call(inp=inp, key=key, make=make):
+            lc = make()
+            obj = lc.mapper if key == "mapper.global_ba" else lc
+            getattr(obj, key.split(".")[-1])(*inp["args"], **inp["kwargs"])
+
+        t = {"host_ms": host_ms(call)}
+        t["device_ms"], t["launches"] = device_profile(call, 3)
+        print(f"  {key}: host {t['host_ms']:.3f} ms for one call (a map copy included), device "
+              f"{t['device_ms']:.4f} ms per call (torch.profiler), {t['launches']:.0f} kernels and "
+              f"copies per call")
+        out[key] = t
+    return out
+
+
+def reprojection_rmse(m, cam) -> float:
+    """RMSE in pixels of every observation of the map's live points in its
+    live keyframes."""
+    pts = m.mp_ids()
+    kf, fi = m.mp_obs_kf[pts], m.mp_obs_idx[pts]
+    ok = (kf >= 0) & (fi >= 0)
+    p_idx = np.broadcast_to(pts[:, None], kf.shape)[ok]
+    kf, fi = kf[ok], fi[ok]
+    live = m.kf_valid[kf]
+    kf, fi, p_idx = kf[live], fi[live], p_idx[live]
+    pc = np.einsum("kij,kj->ki", m.kf_R[kf].astype(np.float64), m.mp_pos[p_idx].astype(np.float64)) \
+        + m.kf_t[kf]
+    uv = np.stack([cam.fx * pc[:, 0] / pc[:, 2] + cam.cx, cam.fy * pc[:, 1] / pc[:, 2] + cam.cy], -1)
+    return float(np.sqrt(np.mean(np.sum((uv - m.kf_feat_xy[kf, fi]) ** 2, -1))))
+
+
+def _ba_cost(mapper, kfs, pts) -> float:
+    """The robust (Huber) cost that the whole-map BA minimizes, of the
+    mapper's map over the cameras `kfs` and the points `pts`."""
+    from orb_slam3_comments_ghr_torch.optim import ba
+
+    P = -(-len(pts) // 2048) * 2048
+    prob = mapper._ba_problem(list(kfs), 0, pts, len(kfs), P)[0]
+    chi2, delta2 = ba._obs_terms(mapper.cam, prob, prob.cam_R, prob.cam_t, prob.p, True)[4::2]
+    return float(ba._cost(chi2, delta2, prob.obs_valid, True))
+
+
+def _perturb(snapshot, seed: int = 0, rot: float = 0.01, trans: float = 0.02,
+             point: float = 0.05) -> dict:
+    """A copy of a map snapshot with every keyframe but the first moved by
+    a random rotation (rad) and translation (m) and every point by `point`
+    m, from `seed` (the noise of tests/test_global_ba.py's map)."""
+    from orb_slam3_comments_ghr_torch.ops import lie
+
+    rng = np.random.default_rng(seed)
+    out = {k: (v.copy() if isinstance(v, np.ndarray) else copy.deepcopy(v))
+           for k, v in snapshot.items()}
+    kfs = np.nonzero(out["kf_valid"])[0][1:]
+    dR = lie.so3_exp(torch.from_numpy(rng.normal(0, rot, (len(kfs), 3)).astype(np.float32)))
+    out["kf_R"][kfs] = (dR.numpy() @ out["kf_R"][kfs]).astype(np.float32)
+    out["kf_t"][kfs] += rng.normal(0, trans, (len(kfs), 3)).astype(np.float32)
+    pts = np.nonzero(out["mp_valid"])[0]
+    out["mp_pos"][pts] += rng.normal(0, point, (len(pts), 3)).astype(np.float32)
+    return out
+
+
+def phase10_global_ba(map_snapshot, device):
+    """Run (d): `mapper.run_full_map_ba` (the chunked whole-map BA that
+    `global_ba` takes for large maps), 10 iterations over every keyframe
+    and point of phase 4's final map, and of the same map with seeded noise
+    on its poses and points (`_perturb`). Fails unless the robust cost the
+    BA minimizes does not rise on the map as it is (local BA has already
+    brought it near its optimum, so a whole-map step may gain nothing and
+    be rejected) and, on the noisy copy, the cost drops and the
+    reprojection RMSE ends below 0.35 of where it started (the bar of
+    tests/test_global_ba.py). Returns, for both, the RMSE and the cost
+    before and after, host ms, device ms and kernels per call, and the
+    peak device memory."""
+    from orb_slam3_comments_ghr_torch import convert
+    from orb_slam3_comments_ghr_torch.ops import cameras
+    from orb_slam3_comments_ghr_torch.pipeline.mapper import LocalMapper
+    from orb_slam3_comments_ghr_torch.utils.config import SlamConfig
+
+    cam = cameras.euroc_cam0()
+    out = {}
+    for key, snap in (("final", map_snapshot), ("perturbed", _perturb(map_snapshot))):
+        def make(snap=snap):
+            m = convert.map_state_from_numpy(snap)
+            return m, LocalMapper(cam, SlamConfig(), m, device=device)
+
+        m, mapper = make()
+        kfs = [int(k) for k in m.kf_ids()]
+        pts = m.local_point_ids(kfs, cap=10**9)
+        rmse0, cost0 = reprojection_rmse(m, cam), _ba_cost(mapper, kfs, pts)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = host_ms(lambda: mapper.run_full_map_ba(kfs, pts, iters=10))
+        peak = torch.cuda.max_memory_allocated()
+        rmse1, cost1 = reprojection_rmse(m, cam), _ba_cost(mapper, kfs, pts)
+
+        def call(make=make, kfs=kfs, pts=pts):
+            mapper2 = make()[1]
+            mapper2.run_full_map_ba(kfs, pts, iters=10)
+
+        device_ms, kernels = device_profile(call, 2)
+        print(f"phase10 (d) run_full_map_ba on phase 4's final map, {key} ({len(kfs)} keyframes, "
+              f"{len(pts)} points, 10 iterations): reprojection RMSE {rmse0:.4f} -> {rmse1:.4f} px, "
+              f"robust cost {cost0:.4f} -> {cost1:.4f}; host {ms:.3f} ms, device {device_ms:.4f} ms, "
+              f"{kernels:.0f} kernels and copies per call, max_memory_allocated "
+              f"{peak / 2**20:.1f} MiB")
+        out[key] = dict(keyframes=len(kfs), points=len(pts), rmse_before_px=rmse0,
+                        rmse_after_px=rmse1, cost_before=cost0, cost_after=cost1, host_ms=ms,
+                        device_ms=device_ms, launches=kernels, peak_mib=peak / 2**20)
+    if not out["final"]["cost_after"] <= out["final"]["cost_before"]:
+        raise AssertionError("phase10 (d): the whole-map BA raised the cost of phase 4's map")
+    p = out["perturbed"]
+    if not (p["cost_after"] < p["cost_before"] and p["rmse_after_px"] < 0.35 * p["rmse_before_px"]):
+        raise AssertionError("phase10 (d): the whole-map BA did not remove the noise of the "
+                             f"perturbed map (RMSE {p['rmse_before_px']:.4f} -> "
+                             f"{p['rmse_after_px']:.4f} px)")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Run the PyTorch port on a CUDA card.")
     ap.add_argument("--save-caller-inputs", metavar="FILE",
@@ -1254,6 +1741,9 @@ def main(argv=None) -> int:
     lb_launches, lb_calls = phase4_lost_and_back(window_match, slam, seq)
     paths["mono lost-and-back"] = dict(lb_calls, launches=lb_launches)
     print(f"phase4 passed in {time.perf_counter() - t0:.1f} s")
+    from orb_slam3_comments_ghr_torch import convert
+
+    phase4_map = convert.map_state_to_numpy(slam.map)  # for phase 10's whole-map BA
     del slam
 
     t0 = time.perf_counter()
@@ -1292,13 +1782,25 @@ def main(argv=None) -> int:
     n, calls, vi_mono = phase9_mono_inertial(window_match, device)
     paths["mono-inertial"] = dict(calls, launches=n)
     print(f"phase9 passed in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    loop = {}
+    n, calls, loop["feature_loop"] = phase10_feature_loop(window_match, device)
+    paths["feature loop"] = dict(calls, launches=n)
+    n, calls, loop["merge"] = phase10_merge(window_match, device)
+    paths["kidnap and merge"] = dict(calls, launches=n)
+    n, calls, rec, loop["image_loop"], loop["stages"] = phase10_image_loop(window_match, device)
+    paths["image loop"] = dict(calls, launches=n)
+    recorded.update(rec)
+    loop["global_ba"] = phase10_global_ba(phase4_map, device)
+    print(f"phase10 passed in {time.perf_counter() - t0:.1f} s")
     if opts.save_caller_inputs:
         torch.save({k: tuple(a.cpu() for a in v) for k, v in recorded.items()},
                    opts.save_caller_inputs)
     err, callers = phase1_callers(window_match, matching, recorded, device,
                                   [*RECORD_AT, *(f"{m} {c}" for m in ("stereo", "rgbd")
                                                  for c in RECORD_AT_DEPTH),
-                                   *(f"stereo-inertial {c}" for c in RECORD_AT_VI)])
+                                   *(f"stereo-inertial {c}" for c in RECORD_AT_VI),
+                                   *RECORD_AT_LOOP])
     max_err = max(max_err, err)
     print("phase1 on the recorded caller inputs passed")
 
@@ -1308,9 +1810,10 @@ def main(argv=None) -> int:
         "name": "window_match", "route": "cuda",
         "source": "orb_slam3_comments_ghr_torch/csrc/window_match.cu",
         "replaces": "orb_slam3_comments_ghr_tpu/ops/pallas_match.py:88",
-        # launches over the main runs of phases 4-9, each counted from 0
+        # launches over the main runs of phases 4-10, each counted from 0
         "launches": sum(paths[p]["launches"] for p in (
-            "mono", "stereo", "rgbd", "stereo-inertial", "rgbd-inertial", "mono-inertial")),
+            "mono", "stereo", "rgbd", "stereo-inertial", "rgbd-inertial", "mono-inertial",
+            "feature loop", "kidnap and merge", "image loop")),
         "max_abs_err": max_err,
         # device time per launch on the recorded mono tracking call (CUDA graph)
         "ms": track["device_ms"], "plain_ms": track["plain_ms"],
@@ -1318,7 +1821,7 @@ def main(argv=None) -> int:
         "paths": paths, "callers": callers, "random_4096x1024_r80": synthetic_times,
     }], "plain_stages": stages, "inertial": {
         "stereo-inertial": vi_stereo, "rgbd-inertial": vi_rgbd, "mono-inertial": vi_mono,
-        "stages": vi_stages}}))
+        "stages": vi_stages}, "loop_closing": loop}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

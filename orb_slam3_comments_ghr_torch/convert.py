@@ -28,6 +28,7 @@ from .ops.cameras import Camera
 from .optim.ba import BAProblem
 from .optim.imu import ImuCalib, Preintegrated
 from .optim.inertial import VIPrior, VIState
+from .optim.posegraph import PoseGraphProblem
 from .optim.vi_ba import VIBAProblem
 from .pipeline.programs import LocalPoints
 from .utils.config import SlamConfig
@@ -48,8 +49,8 @@ def desc_tensor(desc: np.ndarray, device="cuda") -> torch.Tensor:
     return torch.from_numpy(np.array(desc, np.uint32).view(np.int32)).to(device)  # a writable copy
 
 
-_INT_FIELDS = ("level", "obs_cam", "obs_level")
-_BOOL_FIELDS = ("valid", "cam_fixed", "p_valid", "obs_valid", "fixed", "pre_valid")
+_INT_FIELDS = ("level", "obs_cam", "obs_level", "e_i", "e_j")
+_BOOL_FIELDS = ("valid", "cam_fixed", "p_valid", "obs_valid", "fixed", "pre_valid", "e_valid")
 
 
 def _tensor(name: str, a, device) -> torch.Tensor:
@@ -120,6 +121,17 @@ def vi_ba_problem_from_numpy(arrays: Mapping, device="cuda") -> VIBAProblem:
     ported)."""
     fields = {k: _tensor(k, arrays[k], device) for k in VIBAProblem._fields if k != "pre"}
     return VIBAProblem(pre=preintegrated_from_numpy(arrays["pre"], device), **fields)
+
+
+def pose_graph_from_numpy(arrays: Mapping[str, np.ndarray], device="cuda") -> PoseGraphProblem:
+    """An essential-graph problem from the fields of the JAX package's
+    PoseGraphProblem."""
+    return PoseGraphProblem(**{k: _tensor(k, arrays[k], device) for k in PoseGraphProblem._fields})
+
+
+def sim3_from_numpy(s, R, t, device="cuda") -> tuple:
+    """A Sim(3) triple (s, R, t), scalars or batches, as float32 tensors."""
+    return tuple(_tensor("sim3", a, device) for a in (s, R, t))
 
 
 def to_numpy(container) -> dict:

@@ -1,11 +1,13 @@
-"""SO(3) / SE(3) operations on the per-frame path.
+"""SO(3) / SE(3) / Sim(3) operations.
 
-Port of the SO(3)/SE(3) and quaternion part of
-`orb_slam3_comments_ghr_tpu/ops/lie.py`, with the right Jacobians and the
-rotation re-projection that IMU preintegration needs.
-Rotations are (...,3,3) matrices, translations (...,3) vectors; every
-function broadcasts over leading batch dims. The se3 tangent is ordered
-[rho (translation), phi (rotation)], as g2o's SE3Quat.
+Port of `orb_slam3_comments_ghr_tpu/ops/lie.py`: the SO(3)/SE(3) and
+quaternion part, the right Jacobians and the rotation re-projection that
+IMU preintegration needs, and the Sim(3) group of loop closing.
+Rotations are (...,3,3) matrices, translations (...,3) vectors, Sim(3)
+scales (...,) tensors; every function broadcasts over leading batch dims.
+The se3 tangent is ordered [rho (translation), phi (rotation)], as g2o's
+SE3Quat; the sim3 tangent is [rho, phi, sigma] (sigma = log scale), as
+g2o's Sim3.
 """
 
 from __future__ import annotations
@@ -170,3 +172,88 @@ def so3_log(R: torch.Tensor) -> torch.Tensor:
     small = n < 1e-6
     safe_n = torch.where(small, torch.ones_like(n), n)
     return torch.where(small, 2.0 / torch.clamp_min(w, 1e-6), theta / safe_n) * v
+
+
+def _left_jacobian_inv(phi: torch.Tensor) -> torch.Tensor:
+    return so3_right_jacobian_inv(-phi)
+
+
+def se3_log(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """(R, t) -> (...,6) tangent [rho, phi]."""
+    phi = so3_log(R)
+    return torch.cat([_matvec(_left_jacobian_inv(phi), t), phi], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Sim(3): (s, R, t) acts as p -> s R p + t (g2o::Sim3). Inside, the scale and
+# the angle keep a trailing axis (see _sinc_coeffs_sq).
+# ---------------------------------------------------------------------------
+
+
+def _sim3_W(theta: torch.Tensor, sigma: torch.Tensor, phi: torch.Tensor) -> torch.Tensor:
+    """The Sim(3) 'W' matrix coupling translation with rotation and scale
+    (Eade; Strasdat's thesis). theta, sigma: (...,1)."""
+    eps = 1e-5
+    s = torch.exp(sigma)
+    t2 = theta * theta
+    sig_small = torch.abs(sigma) < eps
+    th_small = theta < eps
+    safe_sig = torch.where(sig_small, torch.ones_like(sigma), sigma)
+    safe_th = torch.where(th_small, torch.ones_like(theta), theta)
+    t2c = torch.clamp_min(t2, eps**2)
+
+    C = torch.where(sig_small, 1.0 + sigma / 2.0 + sigma * sigma / 6.0, (s - 1.0) / safe_sig)
+    # theta small & sigma small
+    A_ss = 0.5 + sigma / 6.0
+    B_ss = 1.0 / 6.0 + sigma / 24.0
+    # theta small, sigma general
+    A_sg = ((safe_sig - 1.0) * s + 1.0) / (safe_sig * safe_sig) * torch.ones_like(theta)
+    B_sg = (s * (safe_sig * safe_sig / 2.0 - safe_sig + 1.0) - 1.0) / safe_sig**3
+    # theta general, sigma small
+    A_gs = (1.0 - torch.cos(safe_th)) / t2c
+    B_gs = (safe_th - torch.sin(safe_th)) / safe_th**3
+    # general / general
+    a = s * torch.sin(safe_th)
+    b = s * torch.cos(safe_th)
+    c2 = safe_th * safe_th + safe_sig * safe_sig
+    A_gg = (a * safe_sig + (1.0 - b) * safe_th) / (safe_th * c2)
+    B_gg = (C - ((b - 1.0) * safe_sig + a * safe_th) / c2) / t2c
+
+    A = torch.where(th_small, torch.where(sig_small, A_ss, A_sg), torch.where(sig_small, A_gs, A_gg))
+    B = torch.where(th_small, torch.where(sig_small, B_ss, B_sg), torch.where(sig_small, B_gs, B_gg))
+    K = hat(phi)
+    return C[..., None] * _eye_like(K) + A[..., None] * K + B[..., None] * (K @ K)
+
+
+def sim3_exp(xi: torch.Tensor):
+    """(...,7) [rho, phi, sigma] -> (s, R, t)."""
+    rho, phi, sigma = xi[..., :3], xi[..., 3:6], xi[..., 6:7]
+    theta = torch.linalg.norm(phi, dim=-1, keepdim=True)
+    t = _matvec(_sim3_W(theta, sigma, phi), rho)
+    return torch.exp(sigma)[..., 0], so3_exp(phi), t
+
+
+def sim3_log(s: torch.Tensor, R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """(s, R, t) -> (...,7) [rho, phi, sigma]. W is inverted by cofactors
+    (the JAX package solves; the same 3x3 system)."""
+    sigma = torch.log(s)[..., None]
+    phi = so3_log(R)
+    theta = torch.linalg.norm(phi, dim=-1, keepdim=True)
+    W = _sim3_W(theta, sigma, phi)
+    rho = _matvec(_inv_transpose3(W).transpose(-1, -2), t)
+    return torch.cat([rho, phi, sigma], dim=-1)
+
+
+def sim3_mul(sa, Ra, ta, sb, Rb, tb):
+    """(sa,Ra,ta) * (sb,Rb,tb): p -> sa Ra (sb Rb p + tb) + ta."""
+    return sa * sb, Ra @ Rb, sa[..., None] * _matvec(Ra, tb) + ta
+
+
+def sim3_inv(s, R, t):
+    s_inv = 1.0 / s[..., None]
+    Rt = R.transpose(-1, -2)
+    return s_inv[..., 0], Rt, -s_inv * _matvec(Rt, t)
+
+
+def sim3_apply(s, R, t, p):
+    return s[..., None] * _matvec(R, p) + t

@@ -56,10 +56,20 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 def window_match_plain(qdesc, q_uv, q_radius, q_lvl_lo, q_lvl_hi,
                        tdesc, t_xy, t_level, t_valid):
-    """The XLA path's composition: window_mask + hamming_matrix +
-    masked_best2. Returns (idx, best, second), each (N,) int32."""
+    """The XLA path's composition: window_mask, the Hamming distances,
+    masked_best2. Returns (idx, best, second), each (N,) int32. Only the
+    in-window pairs' distances are computed (the others are masked to BIG
+    by masked_best2 anyway): the same values as the full matrix of
+    `matching.hamming_matrix`, for a few thousand pairs where the matrix has
+    millions."""
     mask = matching.window_mask(q_uv, t_xy, t_level, t_valid > 0.0, q_radius, q_lvl_lo, q_lvl_hi)
-    return matching.masked_best2(matching.hamming_matrix(qdesc, tdesc), mask)
+    qi, tj = mask.nonzero(as_tuple=True)
+    dist = torch.full(mask.shape, matching.BIG, dtype=torch.int32, device=mask.device)
+    d = torch.zeros(qi.shape, dtype=torch.int32, device=mask.device)
+    for k in range(qdesc.shape[1]):
+        d += matching.popcount32(qdesc[qi, k] ^ tdesc[tj, k])
+    dist[qi, tj] = d
+    return matching.masked_best2(dist, mask)
 
 
 def _nvcc() -> str:

@@ -21,8 +21,15 @@ observations per point. Per LM iteration:
 The JAX package phrases the segment sums as one-hot einsums so that they run
 on the TPU's matrix unit; on a GPU a scatter-add is the direct form. The LM
 accept/reject test stays on the device (`torch.where`), so an iteration
-never waits for the host. The full-map and resumable-bite paths
-(`bundle_adjust_resumable`, `_camera_system_chunk`) are not ported yet.
+never waits for the host.
+
+Whole-map BA (`bundle_adjust_resumable`, the global BA after a loop
+closure) runs the same LM in bites of a few iterations, so that the host can
+stop between bites. Its camera system is assembled one point chunk at a
+time, and its Schur cross term by observation pairs: each point's (D, D)
+pairs of camera slots are summed by one `index_add_` into (K*K) 6x6 blocks,
+which stays proportional to the observations where the windowed path's
+(P, K) slots would grow with the whole map.
 """
 
 from __future__ import annotations
@@ -240,3 +247,65 @@ def bundle_adjust(cam: cameras.Camera, prob: BAProblem, iters: int = 10, use_hub
     _, _, _, _, chi2, _, delta2 = _obs_terms(cam, prob, R, t, p, use_huber=False)
     inlier = prob.obs_valid & (chi2 <= delta2)
     return R, t, p, inlier, _cost(chi2, delta2, prob.obs_valid, False)
+
+
+def _camera_system_chunk(cam, prob_c: BAProblem, R, t, lam, K: int, use_huber: bool):
+    """One point chunk's share of the reduced camera system: S (K,K,6,6),
+    rhs (K,6), the diagonal of H_cc (K,6), the cost, and the chunk's W,
+    Hpp^-1 and b_p for the back-substitution."""
+    P, D = prob_c.obs_cam.shape
+    r, Jc, Jp, w, chi2, row_mask, delta2 = _obs_terms(cam, prob_c, R, t, prob_c.p, use_huber)
+    cost = _cost(chi2, delta2, prob_c.obs_valid, use_huber)
+    H_pp, b_p, H_cc, b_c, W = _assemble(prob_c, r, Jc, Jp, w, row_mask, K)
+    Hpp_inv = _point_blocks_inv(H_pp, prob_c.p_valid, lam)
+    oc = prob_c.obs_cam.long()
+    WHinv = W @ Hpp_inv[:, None]                              # (P,D,6,3)
+    WHb = (WHinv @ b_p[:, None, :, None])[..., 0]             # (P,D,6)
+    rhs = b_c - _segment_sum(WHb.reshape(P * D, 6), oc.reshape(P * D), K)
+    # S -= W_d Hpp^-1 W_e^T for every pair (d, e) of a point's observations
+    S_pair = WHinv[:, :, None] @ W[:, None].transpose(-1, -2)  # (P,D,D,6,6)
+    pair = (oc[:, :, None] * K + oc[:, None, :]).reshape(P * D * D)
+    S = -_segment_sum(S_pair.reshape(P * D * D, 6, 6), pair, K * K).reshape(K, K, 6, 6)
+    k = torch.arange(K, device=S.device)
+    S[k, k] += H_cc
+    return S, rhs, torch.diagonal(H_cc, dim1=-2, dim2=-1), cost, W, Hpp_inv, b_p
+
+
+def bundle_adjust_resumable(cam: cameras.Camera, prob: BAProblem, lam0: torch.Tensor,
+                            iters: int = 2, use_huber: bool = True, point_chunk: int = 2048):
+    """A bite of `iters` LM iterations on a whole-map problem. Returns
+    (cam_R, cam_t, p, lam) so that the host can chain bites and stop
+    between them (mbStopGBA, LoopClosing.cc:3067). P must be a multiple of
+    point_chunk (pad with invalid points)."""
+    K = prob.cam_R.shape[0]
+    P = prob.obs_cam.shape[0]
+    dt = prob.p.dtype
+    R, t, p, lam = prob.cam_R, prob.cam_t, prob.p, lam0.to(dt)
+    for _ in range(iters):
+        S = torch.zeros((K, K, 6, 6), dtype=dt, device=p.device)
+        rhs = torch.zeros((K, 6), dtype=dt, device=p.device)
+        diag = torch.zeros((K, 6), dtype=dt, device=p.device)
+        cost0 = torch.zeros((), dtype=dt, device=p.device)
+        Ws, Hinvs, b_ps = [], [], []
+        for c0 in range(0, P, point_chunk):
+            sl = slice(c0, c0 + point_chunk)
+            prob_c = prob._replace(p=p[sl], p_valid=prob.p_valid[sl], obs_cam=prob.obs_cam[sl],
+                                   obs_uv=prob.obs_uv[sl], obs_ur=prob.obs_ur[sl],
+                                   obs_level=prob.obs_level[sl], obs_valid=prob.obs_valid[sl])
+            S_c, rhs_c, diag_c, cost_c, W, Hpp_inv, b_p = _camera_system_chunk(
+                cam, prob_c, R, t, lam, K, use_huber)
+            S, rhs, diag, cost0 = S + S_c, rhs + rhs_c, diag + diag_c, cost0 + cost_c
+            Ws.append(W)
+            Hinvs.append(Hpp_inv)
+            b_ps.append(b_p)
+        dxc = _solve_reduced(S, rhs, prob.cam_fixed, diag, lam, K)
+        dp = _backsubstitute(prob.obs_cam, torch.cat(Ws), torch.cat(Hinvs), torch.cat(b_ps),
+                             prob.p_valid, dxc)
+        R_new, t_new = lie.se3_mul(*lie.se3_exp(dxc), R, t)
+        p_new = p + dp
+        chi2_new, delta2 = _obs_terms(cam, prob, R_new, t_new, p_new, use_huber)[4::2]
+        better = _cost(chi2_new, delta2, prob.obs_valid, use_huber) < cost0
+        R, t, p = (torch.where(better, R_new, R), torch.where(better, t_new, t),
+                   torch.where(better, p_new, p))
+        lam = torch.where(better, lam * 0.5, lam * 5.0)
+    return R, t, p, lam

@@ -6,14 +6,15 @@ for the IMU_* sensors, an `imu_calib`), feed frames with `track_monocular`,
 `track_stereo` (a rectified pair) or `track_rgbd` (an image and its depth
 map), or features with `track_features`, each with the IMU rows since the
 last frame as `imu_samples` (or fed ahead with `feed_imu`); query the state,
-export trajectories. Tracking runs inline per frame and local mapping
-inline per keyframe.
+export trajectories. Tracking runs inline per frame, local mapping and then
+loop closing (`enable_loop_closing`, on by default) inline per keyframe.
 
 The system runs on one device: the card (`torch.device("cuda")`) unless the
 caller passes `device="cpu"`. The per-frame and per-keyframe programs run
 there; the map and the IMU sample queue stay on the host. Not ported yet,
-and refused with NotImplementedError: loop closing (ROADMAP A6),
-asynchronous mapping, fisheye (A7) and atlas files.
+and refused with NotImplementedError: loop closing with an IMU (ROADMAP
+A6.3), asynchronous mapping, fisheye (A7), distributed BA (A8) and atlas
+files.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from .ops import cameras, lie
 from .optim import imu as imu_mod
 from .pipeline import programs
 from .pipeline.imu_frontend import ImuFrontend
+from .pipeline.loopcloser import LoopCloser
 from .pipeline.mapper import LocalMapper
 from .pipeline.tracker import NOT_INITIALIZED, STATE_NAMES, Tracker
 from .retrieval.database import KeyFrameDatabase
@@ -39,9 +41,11 @@ from .utils.device import resolve_device
 
 
 def _check_supported(cam: cameras.Camera, cfg: SlamConfig):
-    if cfg.enable_loop_closing:
-        raise NotImplementedError(
-            "loop closing is not ported yet (ROADMAP A6): set enable_loop_closing=False")
+    if cfg.enable_loop_closing and cfg.is_inertial:
+        raise NotImplementedError("loop closing with an IMU is not ported yet (ROADMAP A6.3): "
+                                  "set enable_loop_closing=False")
+    if cfg.dba_devices != 0:
+        raise NotImplementedError("distributed BA is not ported yet (ROADMAP A8): set dba_devices=0")
     if cfg.async_mapping:
         raise NotImplementedError("asynchronous mapping is not ported yet: set async_mapping=False")
     if cam.kind != cameras.PINHOLE:
@@ -56,25 +60,33 @@ class SLAM:
         self.device = resolve_device(device)
         self.cam = cam
         self.geom_cam = cameras.pinhole_equivalent(cam)
+        voc_path = self.cfg.voc_path or os.path.join(
+            os.path.dirname(__file__), "retrieval", "default_voc.npz")
+        self.voc = (Vocabulary.load(voc_path, device=self.device) if os.path.exists(voc_path)
+                    else Vocabulary.random(device=self.device))
+        self._imu_calib = imu_calib or imu_mod.default_calib()
+        self._new_session()
+
+    def _new_session(self):
+        """A fresh map, keyframe database, IMU front end, tracker, mapper
+        and loop closer (the vocabulary is kept)."""
         self.map = MapState(MapConfig(
             max_kf=self.cfg.max_kf, max_mp=self.cfg.max_mp, n_feat=self.cfg.n_features,
             obs_cap=self.cfg.obs_cap, scale_factor=self.cfg.scale_factor,
             n_levels=self.cfg.n_levels,
         ))
-        voc_path = self.cfg.voc_path or os.path.join(
-            os.path.dirname(__file__), "retrieval", "default_voc.npz")
-        self.voc = (Vocabulary.load(voc_path, device=self.device) if os.path.exists(voc_path)
-                    else Vocabulary.random(device=self.device))
         self.kfdb = KeyFrameDatabase(self.voc, self.cfg.max_kf)
         self.imu = None
         if self.cfg.is_inertial:
-            self.imu = ImuFrontend(imu_calib or imu_mod.default_calib(), device=self.device)
+            self.imu = ImuFrontend(self._imu_calib, device=self.device)
         self.tracker = Tracker(self.geom_cam, self.cfg, self.map, kfdb=self.kfdb, imu=self.imu,
                                device=self.device)
         self.mapper = LocalMapper(self.geom_cam, self.cfg, self.map, kfdb=self.kfdb,
                                   device=self.device)
         self.mapper.imu = self.imu
         self.mapper.kf_preint = self.tracker.kf_preint
+        self.loopcloser = LoopCloser(self.geom_cam, self.cfg, self.map, self.kfdb, self.mapper,
+                                     device=self.device)
         self._empty_lp = None
 
     # --------------------------------------------------------------- per-frame
@@ -172,15 +184,20 @@ class SLAM:
         if kf is not None and self.n_keyframes() >= 2:
             self.mapper.process_keyframe(kf)
             if self.mapper.map_transformed:
-                # the IMU init rotated and rescaled the world: the tracker
-                # goes on from the keyframe's new pose and velocity
+                # the IMU init rotated and rescaled the world
                 self.mapper.map_transformed = False
-                t = self.tracker
-                t.last_R = self.map.kf_R[kf].copy()
-                t.last_t = self.map.kf_t[kf].copy()
-                t.body_vel = self.map.kf_vel[kf].copy()
-                t.velocity = t.vi_prior = t._last_prediction = None
+                self._reseat_tracker(kf)
+            if self.cfg.enable_loop_closing and self.loopcloser.process_keyframe(kf):
+                self._reseat_tracker(kf)  # a loop or merge correction moved it
         return pose
+
+    def _reseat_tracker(self, kf: int):
+        """The tracker goes on from keyframe kf's new pose and velocity."""
+        t = self.tracker
+        t.last_R = self.map.kf_R[kf].copy()
+        t.last_t = self.map.kf_t[kf].copy()
+        t.body_vel = self.map.kf_vel[kf].copy()
+        t.velocity = t.vi_prior = t._last_prediction = None
 
     # --------------------------------------------------------------- queries
     @property
@@ -202,16 +219,14 @@ class SLAM:
         self.tracker.localization_only = False
 
     def reset(self):
-        """Full reset: drop all maps and state (System::Reset)."""
-        self.map = MapState(self.map.cfg)
-        self.tracker.map = self.map
-        self.mapper.map = self.map
-        self.tracker.state = 0
-        self.tracker.last_kf = -1
-        self.tracker._init_feats = None
-        self.tracker.records.clear()
-        self.mapper.recent_mps.clear()
-        self.tracker.kf_preint.clear()
+        """Full reset (System::Reset): every map, the keyframe database,
+        the IMU queue and bias, and the tracker's, mapper's and loop
+        closer's state start again as in a new SLAM. The JAX package keeps
+        the database and the inertial clocks (ROADMAP C3); localization
+        mode stays as it was."""
+        localization_only = self.tracker.localization_only
+        self._new_session()
+        self.tracker.localization_only = localization_only
 
     def reset_active_map(self):
         """Drop only the active sub-map (System::ResetActiveMap), with its

@@ -197,6 +197,21 @@ def make_world(seed: int, n_points: int = 4000, extent=(20.0, 12.0, 8.0),
     return World(points=pts.astype(np.float32), desc=desc, patches=patches, priority=priority)
 
 
+def make_ring_world(seed: int, n_points: int = 6000, r_min: float = 6.0,
+                    r_max: float = 18.0, height: float = 8.0) -> World:
+    """Landmarks on an annulus around the origin, for outward-looking loop
+    trajectories where every heading sees other structure (the JAX
+    package's `make_ring_world`, same draws)."""
+    rng = np.random.default_rng(seed)
+    a = rng.random(n_points) * 2 * np.pi
+    r = rng.random(n_points) * (r_max - r_min) + r_min
+    pts = np.stack([r * np.sin(a), (rng.random(n_points) - 0.5) * height, r * np.cos(a)], -1)
+    desc = rng.integers(0, 2**32, (n_points, 8), dtype=np.uint32)
+    patches = rng.random((n_points, 21, 21)).astype(np.float32) * 200.0 + 30.0
+    priority = rng.random(n_points).astype(np.float32)
+    return World(points=pts.astype(np.float32), desc=desc, patches=patches, priority=priority)
+
+
 def render_features(world: World, cam, R_cw: np.ndarray, t_cw: np.ndarray, n_feat: int = 1024,
                     noise_px: float = 0.4, desc_flip_bits: int = 6, seed: int = 0,
                     stereo: bool = False, device="cuda"):

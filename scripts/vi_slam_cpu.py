@@ -16,7 +16,7 @@ Both use the near-ideal IMU calibration of `bench.py` (noise 1e-4 / 1e-3,
 walk 1e-6 / 1e-5) and feed each frame the IMU rows in (t_{i-1}, t_i].
 
     python scripts/vi_slam_cpu.py --package jax|torch --sensor imu_stereo|imu_rgbd \\
-        [--frames N] [--stereo-count once|twice] [--threads 4]
+        [--frames N] [--stereo-count once|twice] [--threads 4] [--dump FILE.npz]
 
 `--stereo-count twice` runs the JAX package's keyframe decision with the
 count of stereo observations the port uses (see scripts/depth_slam_cpu.py).
@@ -24,7 +24,10 @@ count of stereo observations the port uses (see scripts/depth_slam_cpu.py).
 Prints one line per frame (state, keyframes, points, IMU initialized) and
 a JSON line: the first tracked frame, the frame of the IMU initialization,
 whether VIBA1 ran, tracked frames, keyframes, map points, and the metric
-ATE (no scale fit) of `SLAM.trajectory()`.
+ATE (no scale fit) of `SLAM.trajectory()`. `--dump` writes, after each
+`process_keyframe`, the keyframe's id and the poses, velocities and biases
+of every live keyframe to FILE (`scripts/vi_slam_diff.py` compares two such
+files).
 """
 
 import argparse
@@ -55,6 +58,8 @@ def main(argv=None) -> int:
     ap.add_argument("--stereo-count", choices=("once", "twice"), default="once",
                     help="JAX package only: how its keyframe decision counts stereo observations")
     ap.add_argument("--threads", type=int, default=4, help="torch CPU threads")
+    ap.add_argument("--dump", default=None, help="write the keyframe states after each "
+                    "process_keyframe to this .npz")
     args = ap.parse_args(argv)
 
     # the scene, the IMU sequence and the depth map are the port's numpy
@@ -99,6 +104,18 @@ def main(argv=None) -> int:
     stereo = args.sensor == "imu_stereo"
     slam = make(config.SlamConfig(sensor=config.IMU_STEREO if stereo else config.IMU_RGBD,
                                   enable_loop_closing=False, **widths))
+    dumps = []
+    if args.dump:
+        process_keyframe = slam.mapper.process_keyframe
+
+        def dumped(kf):
+            process_keyframe(kf)
+            m = slam.map
+            ids = m.kf_ids()
+            dumps.append(dict(kf=kf, ids=ids, R=m.kf_R[ids].copy(), t=m.kf_t[ids].copy(),
+                              vel=m.kf_vel[ids].copy(), bias=m.kf_bias[ids].copy()))
+
+        slam.mapper.process_keyframe = dumped
     u8 = lambda img: np.clip(np.round(img), 0, 255).astype(np.uint8)
     b = np.array([cam.bf / cam.fx, 0.0, 0.0], np.float32)
     tracked, first, imu_init_frame = 0, None, None
@@ -123,6 +140,8 @@ def main(argv=None) -> int:
             imu_init_frame = i
         print(i, slam.state, slam.n_keyframes(), slam.n_map_points(), init,
               f"{time.time() - t0:.1f}s", flush=True)
+    if args.dump:
+        np.savez(args.dump, **{f"{j}_{k}": v for j, d in enumerate(dumps) for k, v in d.items()})
     gt = [(times[i], np.vstack([np.hstack([poses[i][0], poses[i][1][:, None]]), [0, 0, 0, 1]])
            .astype(np.float32)) for i in range(n)]
     print(json.dumps(dict(

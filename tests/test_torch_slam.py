@@ -226,7 +226,11 @@ def test_parts_run_on_the_card_unless_told_otherwise(monkeypatch, part):
     assert make(device="cpu").device == torch.device("cpu")
 
 
-@pytest.mark.parametrize("change", [{"enable_loop_closing": True}, {"async_mapping": True}])
+@pytest.mark.parametrize("change", [
+    {"enable_loop_closing": True, "sensor": tconfig.IMU_MONOCULAR},  # ROADMAP A6.3
+    {"async_mapping": True},
+    {"dba_devices": 2},  # ROADMAP A8
+])
 def test_unported_options_raise(change):
     cfg = dataclasses.replace(tconfig.SlamConfig(enable_loop_closing=False), **change)
     with pytest.raises(NotImplementedError):
