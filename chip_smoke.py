@@ -45,7 +45,16 @@ tests/test_image_loopclosing.py (150 rendered 752x480 frames through
 `track_monocular`, the loop closer's stages timed in the run and on the
 inputs of the keyframe that closed the loop, with its host syncs), each to
 its test's bars, and (d) the whole-map BA on phase 4's final map (its cost
-must not rise) and on a copy with seeded noise (it must remove the noise). Phases 4-10 each count the window match's
+must not rise) and on a copy with seeded noise (it must remove the noise).
+Phase 11 runs inertial loop closing: (a) stereo-inertial `track_stereo` at
+phase 7's width with loop closing on, over an outward turn in the room
+scene that closes a loop, whose correction runs the inertial whole-map BA
+(`mapper.full_inertial_ba`), with the frame and stage times of the
+loop-closing keyframe, its host syncs and the inertial BA's device
+profile; (b) the mono-inertial kidnap of tests/test_inertial_merge.py,
+whose yaw-only weld ends in `mapper.merge_inertial_ba`, to that test's four
+bars; (c) `full_inertial_ba` on (a)'s final map, dense and then past the
+dense cap over every point by the point-chunked solver. Phases 4-11 each count the window match's
 launches from 0 (the loop closer's projection counts and fuses apart from
 the mapper's fuse) and record its arguments on one call of each caller;
 after them, phase 1 holds the kernel against the plain version on those calls
@@ -253,6 +262,19 @@ def host_ms(fn) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
+def render_all(fn, poses) -> list:
+    """fn(R, t) for each pose, on RENDER_THREADS threads: the renderers are
+    numpy, whose large array operations run without the interpreter lock,
+    so the frames come out the same, several at a time."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(RENDER_THREADS) as pool:
+        return list(pool.map(lambda pose: fn(*pose), poses))
+
+
+RENDER_THREADS = 8  # the chip machine's cores
+
+
 def camera_centre(R, t) -> np.ndarray:
     return -(np.asarray(R, np.float64).T @ np.asarray(t, np.float64))
 
@@ -269,8 +291,8 @@ def render_sequence(n: int):
     cam = cameras.euroc_cam0()
     scene = synthetic.make_textured_scene(7)
     poses = synthetic.circular_trajectory(300)
-    frames = [np.clip(np.round(synthetic.render_image(scene, cam, *poses[i])), 0, 255)
-              .astype(np.uint8) for i in range(n)]
+    frames = render_all(lambda R, t: np.clip(np.round(synthetic.render_image(scene, cam, R, t)),
+                                             0, 255).astype(np.uint8), poses[:n])
     return frames, scene, poses
 
 
@@ -633,10 +655,11 @@ def second_inputs(seq, mode: str) -> list:
     cam = cameras.euroc_cam0()
     _, scene, poses = seq
     if mode == "rgbd":
-        return [synthetic.depth_map(scene, cam, *poses[i]) for i in range(PHASE5_FRAMES)]
+        return render_all(lambda R, t: synthetic.depth_map(scene, cam, R, t),
+                          poses[:PHASE5_FRAMES])
     b = np.array([cam.bf / cam.fx, 0.0, 0.0], np.float32)
-    return [np.clip(np.round(synthetic.render_image(scene, cam, poses[i][0], poses[i][1] - b)),
-                    0, 255).astype(np.uint8) for i in range(PHASE5_FRAMES)]
+    return render_all(lambda R, t: np.clip(np.round(synthetic.render_image(scene, cam, R, t - b)),
+                                           0, 255).astype(np.uint8), poses[:PHASE5_FRAMES])
 
 
 def phase_depth_slam(wm_mod, seq, second, mode: str):
@@ -878,11 +901,11 @@ def vi_inputs(n: int, scene_seed: int, second: str):
     poses, imu_rows, times = synthetic.vi_sequence(n)
     u8 = lambda img: np.clip(np.round(img), 0, 255).astype(np.uint8)
     b = np.array([cam.bf / cam.fx, 0.0, 0.0], np.float32)
-    left = [u8(synthetic.render_image(scene, cam, R, t)) for R, t in poses]
+    left = render_all(lambda R, t: u8(synthetic.render_image(scene, cam, R, t)), poses)
     if second == "right":
-        sec = [u8(synthetic.render_image(scene, cam, R, t - b)) for R, t in poses]
+        sec = render_all(lambda R, t: u8(synthetic.render_image(scene, cam, R, t - b)), poses)
     else:
-        sec = [synthetic.depth_map(scene, cam, R, t) for R, t in poses]
+        sec = render_all(lambda R, t: synthetic.depth_map(scene, cam, R, t), poses)
     rows = [imu_rows[(imu_rows[:, 0] > (times[i - 1] if i else -1.0)) & (imu_rows[:, 0] <= times[i])]
             for i in range(n)]
     return left, sec, rows, times, poses
@@ -942,8 +965,8 @@ def phase7_stereo_inertial(wm_mod, device):
     originals += [
         (imu_mod, "preintegrate", _keep_call(imu_mod, "preintegrate", kept, "preintegrate",
                                              lambda i, b: imu_ready() and i > 60)),
-        (inertial, "pose_inertial_optimize", _keep_call(
-            inertial, "pose_inertial_optimize", kept, "pose_inertial_optimize",
+        (slam.tracker, "_pose_inertial", _keep_call(
+            slam.tracker, "_pose_inertial", kept, "pose_inertial_optimize",
             lambda i, b: i == 10)),
         (inertial, "inertial_init", _keep_call(inertial, "inertial_init", kept, "inertial_init",
                                                lambda i, b: not imu_ready())),
@@ -1051,17 +1074,22 @@ def phase7_stereo_inertial(wm_mod, device):
         raise AssertionError(f"phase7: the run never called {sorted(missing)}")
 
     # each inertial stage again on its kept inputs: host and device ms and
-    # kernels per call (the calls are pure functions of their inputs)
+    # kernels per call (the calls are pure functions of their inputs); the
+    # VI refinement eagerly and as the tracker runs it, from a CUDA graph
     print("phase7 inertial stages on kept inputs:")
     stages = {}
+    graph = inertial.PoseInertialGraph()
     for key, fn in (("preintegrate", imu_mod.preintegrate),
-                    ("pose_inertial_optimize", inertial.pose_inertial_optimize),
+                    ("pose_inertial_optimize", lambda *a: inertial.pose_inertial_optimize(*a, None)),
+                    ("pose_inertial_optimize (CUDA graph)", graph),
                     ("inertial_init", inertial.inertial_init),
                     ("vi_bundle_adjust", vi_ba.vi_bundle_adjust)):
-        args, kwargs = kept[key]
-        n = 20 if key in ("preintegrate", "pose_inertial_optimize") else 5
-        stages[key] = stage_times(f"{key} {_describe(key, args, kwargs)}",
+        args, kwargs = kept[key.split(" ")[0]]
+        n = 20 if key.startswith(("preintegrate", "pose_inertial_optimize")) else 5
+        stages[key] = stage_times(f"{key} {_describe(key.split(' ')[0], args, kwargs)}",
                                   lambda: fn(*args, **kwargs), calls=n)
+    stages["pose_inertial_optimize (CUDA graph)"]["max_abs_err"] = graph_against_eager(
+        graph, kept["pose_inertial_optimize"][0])
     stages.update({f"{k} in the run": {"host_ms_median": float(np.median(v)) if v else None,
                                        "calls": len(v)} for k, v in stage_ms.items()})
     result = dict(init_frame=init_frame, imu_init_frame=imu_frame,
@@ -1072,15 +1100,39 @@ def phase7_stereo_inertial(wm_mod, device):
     return launches, calls, recorded, result, stages
 
 
-def count_syncs(fn) -> collections.Counter:
+def graph_against_eager(graph, args) -> float:
+    """The CUDA-graph replay of the VI refinement against the eager call on
+    the same inputs: the same inliers, and the state within 1e-5 (the same
+    kernels; cuBLAS may pick another algorithm inside a capture). Returns
+    the largest state difference."""
+    from orb_slam3_comments_ghr_torch.optim import inertial
+
+    eager = inertial.pose_inertial_optimize(*args, None)
+    replay = graph(*args)
+    if not (torch.equal(eager[1], replay[1]) and int(eager[2]) == int(replay[2])):
+        raise AssertionError("phase7: the CUDA-graph refinement's inliers differ from the eager "
+                             "call's")
+    err = max(float((a - b).abs().max()) for a, b in zip(eager[0], replay[0]))
+    print(f"phase7 pose_inertial_optimize CUDA graph against eager: inliers equal "
+          f"({int(eager[2])}), state max abs difference {err:.3e}")
+    if not err <= 1e-5:
+        raise AssertionError("phase7: the CUDA-graph refinement disagrees with the eager call")
+    return err
+
+
+def count_syncs(fn, by_line: bool = True) -> collections.Counter:
     """Run fn() under torch.cuda.set_sync_debug_mode("warn"); count the
-    host syncs it made by the innermost line of the port on the stack."""
+    host syncs it made by the innermost line of the port on the stack (or,
+    without `by_line`, all under "all", which costs no stack walk)."""
     import traceback
     import warnings
 
     where = collections.Counter()
 
     def note(message, category, filename, lineno, file=None, line=None):
+        if not by_line:
+            where["all"] += 1
+            return
         frames = [f for f in traceback.extract_stack()
                   if "orb_slam3_comments_ghr_torch" in f.filename]
         at = frames[-1] if frames else None
@@ -1246,14 +1298,14 @@ LOOP_STAGES = ("_detect", "_verify_sim3", "_count_projection_matches", "_correct
                "_optimize_essential_graph", "_fuse_points_into")
 
 
-def _count_loop_matchers(wm_mod, slam, calls: dict, recorded: dict, record_at: dict):
+def _count_loop_matchers(wm_mod, slam, calls: dict, recorded: dict, record_at: dict,
+                         prefix: str = ""):
     """`_count_matchers` for a SLAM with loop closing: a fuse_project call
     made inside the loop closer's `_count_projection_matches` or
     `_fuse_points_into` counts under "loop_count" / "loop_fuse", any other
-    under "fuse". Returns (originals, a function that puts everything
-    back)."""
+    under "fuse". Returns a function that puts everything back."""
     ctx, active = [], []
-    originals = _count_matchers(wm_mod, calls, active, recorded, record_at,
+    originals = _count_matchers(wm_mod, calls, active, recorded, record_at, prefix,
                                 fuse_key=lambda: ctx[-1] if ctx else "fuse")
     lc = slam.loopcloser
     for name, key in LOOP_CALLERS:
@@ -1446,7 +1498,7 @@ def phase10_image_loop(wm_mod, device):
     centers = np.stack([-R.T @ t for R, t in poses])
     scene = gt_replay.make_room_scene(33, centers, margin=4.0, span=20.0)
     t0 = time.perf_counter()
-    frames = [gt_replay.render_room(scene, cam, R, t) for R, t in poses]
+    frames = render_all(lambda R, t: gt_replay.render_room(scene, cam, R, t), poses)
     print(f"phase10 (c) rendered {len(frames)} room frames in {time.perf_counter() - t0:.1f} s")
     cfg = _loop_cfg(n_features=768, local_points_cap=2048, local_ba_points=1024,
                     min_init_matches=50)
@@ -1706,6 +1758,416 @@ def phase10_global_ba(map_snapshot, device):
     return out
 
 
+# phase 11 (a): the outward turn inside room scene 33 that closes the
+# stereo-inertial loop (scripts/vi_slam_cpu.py --sensor imu_stereo_loop)
+PHASE11_FRAMES = 200
+PHASE11_ARC = 1.1
+# the loop closer's window-match calls kept on the inertial map: the last
+# projection count and the first fuse of the correction
+RECORD_AT_INERTIAL_LOOP = {"loop_count": None, "loop_fuse": 1}
+# phase 11 (b): tests/test_inertial_merge.py's kidnap, not cut
+PHASE11_KIDNAP_FRAMES = 300
+PHASE11_BLANK = range(140, 154)
+
+
+def _loop_closer_timed(slam, keys, stage_ms: dict, current: dict):
+    """Time each loop-closer stage (and the mapper's methods named
+    "mapper.<name>" in `keys`) on the host clock: every call into
+    stage_ms[key], and into current[key] as well (the caller empties
+    `current` at each keyframe). Returns a function that puts them back."""
+    wrapped = []
+    for key in keys:
+        obj = slam.mapper if key.startswith("mapper.") else slam.loopcloser
+        name = key.split(".")[-1]
+        fn = getattr(obj, name)
+
+        def timed(*args, _fn=fn, _key=key, **kwargs):
+            box = {}
+            ms = host_ms(lambda: box.update(out=_fn(*args, **kwargs)))
+            stage_ms[_key].append(ms)
+            current.setdefault(_key, []).append(ms)
+            return box["out"]
+
+        setattr(obj, name, timed)
+        wrapped.append((obj, name))
+    return lambda: [vars(obj).pop(name, None) for obj, name in wrapped]
+
+
+def _inertial_mapper_maker(cam, cfg, snap, device):
+    """A function making a LocalMapper with the IMU on a fresh copy of the
+    map, keyframe preintegrations and IMU bias of `snap`."""
+    from orb_slam3_comments_ghr_torch import convert
+    from orb_slam3_comments_ghr_torch.pipeline.imu_frontend import ImuFrontend
+    from orb_slam3_comments_ghr_torch.pipeline.mapper import LocalMapper
+
+    def make():
+        mapper = LocalMapper(cam, cfg, convert.map_state_from_numpy(snap["map"]), device=device)
+        mapper.imu = ImuFrontend(imu_calib(), device=device)
+        mapper.imu.bias = snap["bias"].copy()
+        mapper.kf_preint = dict(snap["preint"])
+        return mapper
+
+    return make
+
+
+def _inertial_snapshot(mapper) -> dict:
+    from orb_slam3_comments_ghr_torch import convert
+
+    return dict(map=convert.map_state_to_numpy(mapper.map), preint=dict(mapper.kf_preint),
+                bias=np.asarray(mapper.imu.bias).copy())
+
+
+def phase11_inertial_loop(wm_mod, device):
+    """Run (a), the flagship with loop closing on: stereo-inertial
+    `SLAM.track_stereo` with the IMU rows at phase 7's full width (EuRoC
+    cam0 752x480, 1024 features, local map 4096, local BA 2048 points, IMU
+    at 200 Hz with phase 7's noise) and the default SlamConfig (loop closing
+    on), over PHASE11_FRAMES frames of `vi_sequence(arc=PHASE11_ARC,
+    outward=True)`: an outward-looking turn of 1.1 turns inside room scene
+    33 of tests/test_image_loopclosing.py, left and right views rendered
+    exactly, which revisits its start. Two gates are those of
+    tests/test_inertial_merge.py so that a loop can fire inside the
+    script's time: `loop_requires_viba2=False` (the reference waits ~15 s
+    for VIBA2) and `loop_min_kfs=8`. The forward-looking sweep of phase 7
+    cannot close a loop: every keyframe sees the same planes, so the
+    connected set excludes every candidate (PERF.md section 4). Fails unless >=
+    95 % of the frames are tracked, the metric ATE (no scale fit) of
+    `trajectory()` is < 8 cm, a loop closes and its correction reaches
+    `mapper.full_inertial_ba`, one map remains, and the window match
+    launched once per matcher call. Times the frames, the loop closer's
+    stages of the keyframe that closed the loop, counts that keyframe's host
+    syncs, and profiles the inertial GBA on its kept inputs. Returns
+    (launches, calls, recorded arguments, result, the final map's snapshot
+    with its ground truth)."""
+    from orb_slam3_comments_ghr_torch.ops import cameras
+    from orb_slam3_comments_ghr_torch.system import SLAM
+    from orb_slam3_comments_ghr_torch.utils import config, evaluation, gt_replay, synthetic
+
+    cam = cameras.euroc_cam0()
+    n = PHASE11_FRAMES
+    poses, imu_rows, times = synthetic.vi_sequence(n, arc=PHASE11_ARC, outward=True)
+    room = gt_replay.make_room_scene(33, np.stack([-R.T @ t for R, t in poses]), margin=4.0,
+                                     span=20.0)
+    u8 = lambda img: np.clip(np.round(img), 0, 255).astype(np.uint8)
+    b = np.array([cam.bf / cam.fx, 0.0, 0.0], np.float32)
+    t0 = time.perf_counter()
+    left = render_all(lambda R, t: u8(gt_replay.render_room(room, cam, R, t)), poses)
+    right = render_all(lambda R, t: u8(gt_replay.render_room(room, cam, R, t - b)), poses)
+    rows = [imu_rows[(imu_rows[:, 0] > (times[i - 1] if i else -1.0)) & (imu_rows[:, 0] <= times[i])]
+            for i in range(n)]
+    print(f"phase11 (a) rendered {n} stereo pairs in {time.perf_counter() - t0:.1f} s")
+    cfg = config.SlamConfig(sensor=config.IMU_STEREO, n_features=1024, local_points_cap=4096,
+                            local_ba_points=2048, max_frames_between_kf=10, min_init_matches=60,
+                            loop_requires_viba2=False, loop_min_kfs=8)
+    if not cfg.enable_loop_closing:
+        raise AssertionError("phase11 (a): the default SlamConfig has loop closing off")
+    slam = SLAM(cam, cfg, imu_calib=imu_calib(), device=device)
+    lc, mapper = slam.loopcloser, slam.mapper
+    calls = {"tracking": 0, "init": 0, "fuse": 0, "loop_count": 0, "loop_fuse": 0}
+    recorded = {}
+    restore = _count_loop_matchers(wm_mod, slam, calls, recorded, RECORD_AT_INERTIAL_LOOP,
+                                   prefix="inertial ")
+    keys = (*LOOP_STAGES, "mapper.full_inertial_ba")
+    stage_ms, current = {k: [] for k in keys}, {}
+    # the inputs of the first inertial GBA, kept for its device profile
+    kept = {}
+
+    def keeping(**kwargs):
+        if not kept:
+            kept.update(_inertial_snapshot(mapper), kwargs=kwargs)
+        return full_inertial_ba(**kwargs)
+
+    unwrap = _loop_closer_timed(slam, keys, stage_ms, current)
+    full_inertial_ba = mapper.full_inertial_ba
+    mapper.full_inertial_ba = keeping
+    loop_kf = {}
+    process_keyframe = lc.process_keyframe
+
+    def counted(kf):
+        box, loops = {}, lc.n_loops
+        current.clear()
+        syncs = count_syncs(lambda: box.update(out=process_keyframe(kf)), by_line=False)
+        if lc.n_loops > loops and not loop_kf:
+            loop_kf.update(kf=kf, syncs=sum(syncs.values()),
+                           stages={k: sum(v) for k, v in current.items()})
+        return box["out"]
+
+    lc.process_keyframe = counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wm_mod.launches = 0
+    try:
+        tracked, plain_ms, loop_ms = 0, [], []
+        for i in range(n):
+            box, loops = {}, lc.n_loops
+            ms = host_ms(lambda: box.update(pose=slam.track_stereo(left[i], right[i], times[i],
+                                                                   imu_samples=rows[i])))
+            if box["pose"] is not None:
+                if not np.isfinite(box["pose"]).all():
+                    raise AssertionError(f"phase11 (a) frame {i}: non-finite pose")
+                tracked += 1
+            if lc.n_loops > loops:
+                loop_ms.append(ms)
+            elif i > 0 and slam.tracker.pending_kf is None:
+                plain_ms.append(ms)
+        torch.cuda.synchronize()
+        launches = wm_mod.launches
+    finally:
+        restore()
+        vars(mapper).pop("full_inertial_ba")
+        unwrap()
+        del lc.process_keyframe
+    peak = torch.cuda.max_memory_allocated()
+    gt = vi_gt(poses, times)
+    ate = evaluation.ate_rmse(slam.trajectory(), gt, with_scale=False)
+    print(f"phase11 (a) stereo-inertial loop {n} frames: tracked {tracked}/{n}, IMU initialized "
+          f"{bool(slam.map.map_imu_init.get(slam.map.active_map, False))}, maps "
+          f"{slam.map.n_maps}, loops {lc.n_loops}, merges {lc.n_merges}, keyframes "
+          f"{slam.n_keyframes()}, map points {slam.n_map_points()}, metric ATE (no scale fit) "
+          f"{ate * 1e3:.3f} mm, max_memory_allocated {peak / 2**20:.1f} MiB")
+    print(f"phase11 (a) track_stereo host ms on {len(plain_ms)} frames without a keyframe (median "
+          f"/ p75): {np.median(plain_ms):.3f} / {np.percentile(plain_ms, 75):.3f}; on the frames "
+          "whose keyframe closed a loop: " + " / ".join(f"{v:.3f}" for v in loop_ms))
+    for key, v in stage_ms.items():
+        print(f"phase11 (a) {key} host ms in the run over {len(v)} calls (median / max): "
+              + (f"{np.median(v):.3f} / {max(v):.3f}" if v else "none"))
+    if loop_kf:
+        print(f"phase11 (a) the keyframe that closed the loop ({loop_kf['kf']}): {loop_kf['syncs']} "
+              "host syncs (set_sync_debug_mode); host ms by stage: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in loop_kf["stages"].items()))
+    _check_launches("phase11 (a)", launches, calls)
+    if tracked < 0.95 * n or not ate < 0.08 or lc.n_loops < 1 or slam.map.n_maps != 1:
+        raise AssertionError(f"phase11 (a): tracked {tracked} of {n}, ATE {ate:.4f} m, "
+                             f"{lc.n_loops} loops, {slam.map.n_maps} maps (bars >= 95 %, < 8 cm, "
+                             ">= 1, 1)")
+    if not stage_ms["mapper.full_inertial_ba"]:
+        raise AssertionError("phase11 (a): the loop correction never reached full_inertial_ba")
+    if set(f"inertial {k}" for k in RECORD_AT_INERTIAL_LOOP) - set(recorded):
+        raise AssertionError("phase11 (a): a loop-closer caller recorded no call")
+    # the inertial GBA again on its kept inputs, each call on a fresh copy
+    make = _inertial_mapper_maker(cam, cfg, kept, device)
+    call = lambda: make().full_inertial_ba(**kept["kwargs"])
+    gba = {"host_ms": host_ms(call)}
+    gba["device_ms"], gba["launches"] = device_profile(call, 2)
+    m0 = make().map
+    chain = make()._temporal_chain(int(m0.kf_ids()[-1]), cap=256)
+    print(f"phase11 (a) full_inertial_ba of the loop on its kept inputs ({len(chain)} keyframes in "
+          f"the chain, {kept['kwargs']}): host {gba['host_ms']:.3f} ms for one call (a map copy "
+          f"included), device {gba['device_ms']:.4f} ms per call (torch.profiler), "
+          f"{gba['launches']:.0f} kernels and copies per call")
+    result = dict(tracked=tracked, maps=slam.map.n_maps, loops=lc.n_loops, merges=lc.n_merges,
+                  keyframes=slam.n_keyframes(), points=slam.n_map_points(), ate_m=ate,
+                  peak_mib=peak / 2**20, loop_keyframe=loop_kf, full_inertial_ba=gba,
+                  frame_ms={"plain_median": float(np.median(plain_ms)),
+                            "plain_p75": float(np.percentile(plain_ms, 75)),
+                            "loop_closing": loop_ms})
+    return launches, calls, recorded, result, dict(_inertial_snapshot(mapper), cfg=cfg, gt=gt)
+
+
+def phase11_kidnap(wm_mod, device):
+    """Run (b), tests/test_inertial_merge.py's kidnap, not cut:
+    mono-inertial `track_features` on 512 rendered features of world 57
+    over 300 frames of `vi_sequence`, blank frames 140-153 (the IMU rows
+    still fed), loop closing on with that test's gates. Fails unless map 0
+    is IMU-initialized before the kidnap and a second map opens, a merge
+    happens and leaves map 0 with imu_init / VIBA1 / VIBA2 set, the weld
+    (the transform applied while both maps were IMU-initialized) is
+    yaw-only (R[2,2] > 0.9999, off-axis terms < 1e-6) with scale in [0.9,
+    1.1], more than 80 frames are tracked after the kidnap, the weld ran
+    `mapper.merge_inertial_ba`, and the window match launched once per
+    matcher call."""
+    from orb_slam3_comments_ghr_torch.frontend.types import empty_features
+    from orb_slam3_comments_ghr_torch.ops import cameras
+    from orb_slam3_comments_ghr_torch.system import SLAM
+    from orb_slam3_comments_ghr_torch.utils import config, synthetic
+
+    cam = cameras.euroc_cam0()
+    n = PHASE11_KIDNAP_FRAMES
+    world = synthetic.make_world(57, n_points=3000)
+    poses, imu_rows, times = synthetic.vi_sequence(n)
+    feats = [None if i in PHASE11_BLANK else
+             synthetic.render_features(world, cam, *poses[i], n_feat=512, seed=5700 + i,
+                                       device=device)[0] for i in range(n)]
+    blank = empty_features(512, device=device)
+    cfg = config.SlamConfig(sensor=config.IMU_MONOCULAR, n_features=512, local_points_cap=2048,
+                            local_ba_points=2048, max_frames_between_kf=5, min_init_matches=60,
+                            recently_lost_secs=0.3, loop_requires_viba2=False, loop_min_kfs=8)
+    slam = SLAM(cam, cfg, imu_calib=imu_calib(), device=device)
+    m = slam.map
+    transforms = []
+    apply_transform = m.apply_transform
+
+    def spy(map_id, s, R, t, **kw):
+        transforms.append((int(map_id), float(s), np.asarray(R).copy(), dict(m.map_imu_init)))
+        return apply_transform(map_id, s, R, t, **kw)
+
+    m.apply_transform = spy
+    welds = []
+    merge_inertial_ba = slam.mapper.merge_inertial_ba
+    slam.mapper.merge_inertial_ba = lambda kf, cand: (welds.append(kf), merge_inertial_ba(kf, cand))
+    calls = {"tracking": 0, "init": 0, "fuse": 0, "loop_count": 0, "loop_fuse": 0}
+    restore = _count_loop_matchers(wm_mod, slam, calls, {}, {})
+    torch.cuda.synchronize()
+    wm_mod.launches = 0
+    try:
+        tracked, imu_init_map0, maps_before, maps_after = 0, False, None, None
+        for i in range(n):
+            chunk = imu_rows[(imu_rows[:, 0] > (times[i - 1] if i else -1.0))
+                             & (imu_rows[:, 0] <= times[i])]
+            if len(chunk):
+                slam.feed_imu(chunk)
+            if i == PHASE11_BLANK[0]:
+                imu_init_map0, maps_before = bool(m.map_imu_init.get(0, False)), m.n_maps
+            pose = slam.track_features(blank if feats[i] is None else feats[i], times[i])
+            if i == PHASE11_BLANK[-1]:
+                maps_after = m.n_maps
+            tracked += i > PHASE11_BLANK[-1] and pose is not None
+        torch.cuda.synchronize()
+        launches = wm_mod.launches
+    finally:
+        restore()
+        del m.apply_transform, slam.mapper.merge_inertial_ba
+    lc = slam.loopcloser
+    weld = [(s, R) for _, s, R, flags in transforms if sum(bool(v) for v in flags.values()) >= 2]
+    print(f"phase11 (b) inertial kidnap and merge {n} frames: map 0 IMU-initialized before the "
+          f"kidnap {imu_init_map0}, maps {maps_before} -> {maps_after}, merges {lc.n_merges}, "
+          f"loops {lc.n_loops}, merge_inertial_ba calls {len(welds)}, map 0 imu_init / VIBA1 / "
+          f"VIBA2 {m.map_imu_init.get(0, False)} / {m.map_viba1.get(0, False)} / "
+          f"{m.map_viba2.get(0, False)}, tracked after the kidnap {tracked}, active map "
+          f"{m.active_map} of {m.n_maps}")
+    if weld:
+        s, R = weld[0]
+        print(f"phase11 (b) weld: scale {s:.6f}, R[2,2] {R[2, 2]:.8f}, off-axis max "
+              f"{max(abs(R[0, 2]), abs(R[1, 2]), abs(R[2, 0]), abs(R[2, 1])):.3e}")
+    _check_launches("phase11 (b)", launches, calls)
+    if not (imu_init_map0 and maps_after > maps_before):
+        raise AssertionError("phase11 (b): map 0 not IMU-initialized, or no second map")
+    if not (lc.n_merges >= 1 and m.map_imu_init.get(0, False) and m.map_viba1.get(0, False)
+            and m.map_viba2.get(0, False)) or not welds:
+        raise AssertionError("phase11 (b): no inertial merge, or map 0's stages not set")
+    s, R = weld[0] if weld else (0.0, np.zeros((3, 3)))
+    if not (0.9 <= s <= 1.1 and R[2, 2] > 0.9999 and max(abs(R[0, 2]), abs(R[1, 2]),
+                                                        abs(R[2, 0]), abs(R[2, 1])) < 1e-6):
+        raise AssertionError("phase11 (b): the weld is not yaw-only with scale in [0.9, 1.1]")
+    if tracked <= 80:
+        raise AssertionError(f"phase11 (b): {tracked} frames tracked after the kidnap (<= 80)")
+    return launches, calls, dict(maps_before=maps_before, maps_after=maps_after,
+                                 merges=lc.n_merges, welds=len(welds), tracked_after=tracked,
+                                 weld_scale=s, weld_R22=float(R[2, 2]))
+
+
+def _kf_ate(m, gt) -> float:
+    """Metric ATE (no scale fit) of the map's keyframe poses."""
+    from orb_slam3_comments_ghr_torch.utils import evaluation
+
+    gtd = {round(t, 6): T for t, T in gt}
+    est = []
+    for kf in m.kf_ids():
+        t = round(float(m.kf_time[kf]), 6)
+        if t in gtd:
+            T = np.eye(4, dtype=np.float32)
+            T[:3, :3], T[:3, 3] = m.kf_R[kf], m.kf_t[kf]
+            est.append((t, T))
+    return evaluation.ate_rmse(est, gt, with_scale=False)
+
+
+def _vi_cost64(cam, prob, state) -> float:
+    """The robust cost that the VI-BA minimizes, of the states (Rwb, pwb,
+    vel, bias, p) on the problem `prob`, evaluated in float64."""
+    from orb_slam3_comments_ghr_torch.optim import vi_ba
+
+    f64 = lambda a: a.double() if torch.is_tensor(a) and a.is_floating_point() else a
+    prob = prob._replace(pre=type(prob.pre)(*map(f64, prob.pre)),
+                         **{k: f64(v) for k, v in prob._asdict().items() if k != "pre"})
+    return float(vi_ba._total_cost(cam, prob, *map(f64, state), True))
+
+
+def phase11_full_inertial_ba(snap, device):
+    """Run (c): `mapper.full_inertial_ba(iters=7)` on run (a)'s final map,
+    first on the dense solver (the chain's first 4 x local_ba_points points)
+    and then past the dense cap (local_ba_points cut below the chain's
+    point count, as tests/test_full_inertial_ba.py does), where every point
+    of the chain goes to the point-chunked solver. The cost is read on each
+    solver call's own problem, in float64, before and after the call: the
+    map's float32 round trip between bites (body to camera poses and back)
+    moves a cost dominated by stiff inertial factors and by the Huber tails
+    of the map's outliers by ~1e-6 of itself even when every step is
+    rejected. Fails unless the chunked solver sees P >= the chain's point
+    count, no solver call raises its cost, and the keyframe ATE ends <=
+    max(1.2 x its start, 0.3 m). Returns host ms, device ms, kernels, peak
+    memory, costs and ATEs per path."""
+    import dataclasses
+
+    from orb_slam3_comments_ghr_torch.ops import cameras
+    from orb_slam3_comments_ghr_torch.optim import vi_ba
+
+    cam = cameras.euroc_cam0()
+    cfg, gt = snap["cfg"], snap["gt"]
+    mapper = _inertial_mapper_maker(cam, cfg, snap, device)()
+    m = mapper.map
+    chain = mapper._temporal_chain(int(m.kf_ids()[-1]), cap=256)
+    all_pts = m.local_point_ids(chain, None)
+    dense_cap = 4 * cfg.local_ba_points
+    small = dataclasses.replace(cfg, local_ba_points=max(16, len(all_pts) // 32))
+    solvers = {name: getattr(vi_ba, name) for name in ("vi_bundle_adjust",
+                                                       "vi_bundle_adjust_chunked")}
+    seen = []
+
+    def spied(name):
+        def spy(cam_, prob, *args, **kwargs):
+            out = solvers[name](cam_, prob, *args, **kwargs)
+            seen.append((name, int(prob.p.shape[0]),
+                         _vi_cost64(cam_, prob, (prob.Rwb, prob.pwb, prob.vel, prob.bias, prob.p)),
+                         _vi_cost64(cam_, prob, out[:5])))
+            return out
+        return spy
+
+    out = {}
+    for key, run_cfg, kwargs in (("dense", cfg, dict(iters=7, point_cap=dense_cap)),
+                                 ("chunked", small, dict(iters=7))):
+        start = _inertial_snapshot(mapper)
+        mapper.cfg = run_cfg
+        ate0 = _kf_ate(m, gt)
+        # host ms and peak memory without the cost reads, then the costs
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = host_ms(lambda: mapper.full_inertial_ba(**kwargs))
+        peak = torch.cuda.max_memory_allocated()
+        ate1 = _kf_ate(m, gt)
+        make = _inertial_mapper_maker(cam, run_cfg, start, device)
+        device_ms, kernels = device_profile(lambda: make().full_inertial_ba(**kwargs), 2)
+        seen.clear()
+        for name in solvers:
+            setattr(vi_ba, name, spied(name))
+        try:
+            make().full_inertial_ba(**kwargs)
+        finally:
+            for name, fn in solvers.items():
+                setattr(vi_ba, name, fn)
+        P = max((n for name, n, _, _ in seen if name.endswith("chunked")), default=None)
+        costs = [(c0, c1) for _, _, c0, c1 in seen]
+        print(f"phase11 (c) full_inertial_ba {key} on run (a)'s final map ({len(chain)} keyframes, "
+              f"{len(m.local_point_ids(chain, kwargs.get('point_cap')))} of the chain's "
+              f"{len(all_pts)} points, chunked P {P}, 7 iterations in {len(seen)} bites): VI-BA "
+              "cost per bite (float64) " + ", ".join(f"{a:.1f} -> {b:.1f}" for a, b in costs)
+              + f"; keyframe ATE {ate0 * 1e3:.3f} -> {ate1 * 1e3:.3f} mm; host {ms:.3f} ms, device "
+              f"{device_ms:.4f} ms, {kernels:.0f} kernels and copies per call, "
+              f"max_memory_allocated {peak / 2**20:.1f} MiB")
+        out[key] = dict(keyframes=len(chain), chunked_P=P, bite_costs=costs,
+                        kf_ate_before_m=ate0, kf_ate_after_m=ate1, host_ms=ms,
+                        device_ms=device_ms, launches=kernels, peak_mib=peak / 2**20)
+        if not all(c1 <= c0 for c0, c1 in costs) or not costs:
+            raise AssertionError(f"phase11 (c) {key}: a solver call raised the VI-BA cost")
+        if not ate1 <= max(1.2 * ate0, 0.3):
+            raise AssertionError(f"phase11 (c) {key}: keyframe ATE {ate0:.4f} -> {ate1:.4f} m")
+    if out["dense"]["chunked_P"] is not None:
+        raise AssertionError("phase11 (c): the dense run went through the chunked solver")
+    if not (out["chunked"]["chunked_P"] or 0) >= len(all_pts):
+        raise AssertionError(f"phase11 (c): the chunked solver saw P {out['chunked']['chunked_P']} "
+                             f"< {len(all_pts)} points of the chain")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Run the PyTorch port on a CUDA card.")
     ap.add_argument("--save-caller-inputs", metavar="FILE",
@@ -1793,6 +2255,15 @@ def main(argv=None) -> int:
     recorded.update(rec)
     loop["global_ba"] = phase10_global_ba(phase4_map, device)
     print(f"phase10 passed in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    n, calls, rec, loop["inertial_loop"], snap = phase11_inertial_loop(window_match, device)
+    paths["stereo-inertial loop"] = dict(calls, launches=n)
+    recorded.update(rec)
+    n, calls, loop["inertial_merge"] = phase11_kidnap(window_match, device)
+    paths["inertial kidnap and merge"] = dict(calls, launches=n)
+    loop["full_inertial_ba"] = phase11_full_inertial_ba(snap, device)
+    del snap
+    print(f"phase11 passed in {time.perf_counter() - t0:.1f} s")
     if opts.save_caller_inputs:
         torch.save({k: tuple(a.cpu() for a in v) for k, v in recorded.items()},
                    opts.save_caller_inputs)
@@ -1800,7 +2271,8 @@ def main(argv=None) -> int:
                                   [*RECORD_AT, *(f"{m} {c}" for m in ("stereo", "rgbd")
                                                  for c in RECORD_AT_DEPTH),
                                    *(f"stereo-inertial {c}" for c in RECORD_AT_VI),
-                                   *RECORD_AT_LOOP])
+                                   *RECORD_AT_LOOP,
+                                   *(f"inertial {c}" for c in RECORD_AT_INERTIAL_LOOP)])
     max_err = max(max_err, err)
     print("phase1 on the recorded caller inputs passed")
 
@@ -1810,10 +2282,11 @@ def main(argv=None) -> int:
         "name": "window_match", "route": "cuda",
         "source": "orb_slam3_comments_ghr_torch/csrc/window_match.cu",
         "replaces": "orb_slam3_comments_ghr_tpu/ops/pallas_match.py:88",
-        # launches over the main runs of phases 4-10, each counted from 0
+        # launches over the main runs of phases 4-11, each counted from 0
         "launches": sum(paths[p]["launches"] for p in (
             "mono", "stereo", "rgbd", "stereo-inertial", "rgbd-inertial", "mono-inertial",
-            "feature loop", "kidnap and merge", "image loop")),
+            "feature loop", "kidnap and merge", "image loop", "stereo-inertial loop",
+            "inertial kidnap and merge")),
         "max_abs_err": max_err,
         # device time per launch on the recorded mono tracking call (CUDA graph)
         "ms": track["device_ms"], "plain_ms": track["plain_ms"],

@@ -249,13 +249,14 @@ def bundle_adjust(cam: cameras.Camera, prob: BAProblem, iters: int = 10, use_hub
     return R, t, p, inlier, _cost(chi2, delta2, prob.obs_valid, False)
 
 
-def _camera_system_chunk(cam, prob_c: BAProblem, R, t, lam, K: int, use_huber: bool):
-    """One point chunk's share of the reduced camera system: S (K,K,6,6),
-    rhs (K,6), the diagonal of H_cc (K,6), the cost, and the chunk's W,
-    Hpp^-1 and b_p for the back-substitution."""
+def _chunk_schur(prob_c, r, Jc, Jp, w, row_mask, lam, K: int):
+    """One point chunk's share of the reduced camera system from its
+    observation terms (residuals, camera and point Jacobians, weights):
+    S (K,K,6,6), rhs (K,6), the diagonal of H_cc (K,6), and the chunk's W,
+    Hpp^-1 and b_p for the back-substitution. The camera Jacobians may be
+    any 6-wide pose perturbation (the visual-inertial BA passes the body
+    frame's)."""
     P, D = prob_c.obs_cam.shape
-    r, Jc, Jp, w, chi2, row_mask, delta2 = _obs_terms(cam, prob_c, R, t, prob_c.p, use_huber)
-    cost = _cost(chi2, delta2, prob_c.obs_valid, use_huber)
     H_pp, b_p, H_cc, b_c, W = _assemble(prob_c, r, Jc, Jp, w, row_mask, K)
     Hpp_inv = _point_blocks_inv(H_pp, prob_c.p_valid, lam)
     oc = prob_c.obs_cam.long()
@@ -268,7 +269,28 @@ def _camera_system_chunk(cam, prob_c: BAProblem, R, t, lam, K: int, use_huber: b
     S = -_segment_sum(S_pair.reshape(P * D * D, 6, 6), pair, K * K).reshape(K, K, 6, 6)
     k = torch.arange(K, device=S.device)
     S[k, k] += H_cc
-    return S, rhs, torch.diagonal(H_cc, dim1=-2, dim2=-1), cost, W, Hpp_inv, b_p
+    return S, rhs, torch.diagonal(H_cc, dim1=-2, dim2=-1), W, Hpp_inv, b_p
+
+
+def _camera_system_chunk(cam, prob_c: BAProblem, R, t, lam, K: int, use_huber: bool):
+    """One point chunk's share of the reduced camera system: S (K,K,6,6),
+    rhs (K,6), the diagonal of H_cc (K,6), the cost, and the chunk's W,
+    Hpp^-1 and b_p for the back-substitution."""
+    r, Jc, Jp, w, chi2, row_mask, delta2 = _obs_terms(cam, prob_c, R, t, prob_c.p, use_huber)
+    cost = _cost(chi2, delta2, prob_c.obs_valid, use_huber)
+    S, rhs, diag, W, Hpp_inv, b_p = _chunk_schur(prob_c, r, Jc, Jp, w, row_mask, lam, K)
+    return S, rhs, diag, cost, W, Hpp_inv, b_p
+
+
+def point_chunks(prob, p, point_chunk: int):
+    """The problem's point chunks of `point_chunk` rows, each with the
+    positions `p` in place of prob.p (observation tables and validity
+    sliced alike)."""
+    for c0 in range(0, prob.obs_cam.shape[0], point_chunk):
+        sl = slice(c0, c0 + point_chunk)
+        yield prob._replace(p=p[sl], p_valid=prob.p_valid[sl], obs_cam=prob.obs_cam[sl],
+                            obs_uv=prob.obs_uv[sl], obs_ur=prob.obs_ur[sl],
+                            obs_level=prob.obs_level[sl], obs_valid=prob.obs_valid[sl])
 
 
 def bundle_adjust_resumable(cam: cameras.Camera, prob: BAProblem, lam0: torch.Tensor,
@@ -278,7 +300,6 @@ def bundle_adjust_resumable(cam: cameras.Camera, prob: BAProblem, lam0: torch.Te
     between them (mbStopGBA, LoopClosing.cc:3067). P must be a multiple of
     point_chunk (pad with invalid points)."""
     K = prob.cam_R.shape[0]
-    P = prob.obs_cam.shape[0]
     dt = prob.p.dtype
     R, t, p, lam = prob.cam_R, prob.cam_t, prob.p, lam0.to(dt)
     for _ in range(iters):
@@ -287,11 +308,7 @@ def bundle_adjust_resumable(cam: cameras.Camera, prob: BAProblem, lam0: torch.Te
         diag = torch.zeros((K, 6), dtype=dt, device=p.device)
         cost0 = torch.zeros((), dtype=dt, device=p.device)
         Ws, Hinvs, b_ps = [], [], []
-        for c0 in range(0, P, point_chunk):
-            sl = slice(c0, c0 + point_chunk)
-            prob_c = prob._replace(p=p[sl], p_valid=prob.p_valid[sl], obs_cam=prob.obs_cam[sl],
-                                   obs_uv=prob.obs_uv[sl], obs_ur=prob.obs_ur[sl],
-                                   obs_level=prob.obs_level[sl], obs_valid=prob.obs_valid[sl])
+        for prob_c in point_chunks(prob, p, point_chunk):
             S_c, rhs_c, diag_c, cost_c, W, Hpp_inv, b_p = _camera_system_chunk(
                 cam, prob_c, R, t, lam, K, use_huber)
             S, rhs, diag, cost0 = S + S_c, rhs + rhs_c, diag + diag_c, cost0 + cost_c

@@ -8,15 +8,18 @@ Port of `orb_slam3_comments_ghr_tpu/optim/inertial.py`:
   scale_gravity_refine  : the scale + gravity overload (Optimizer.cc:4085)
   pose_inertial_optimize: PoseInertialOptimizationLastKeyFrame (Optimizer.cc:435)
                           with the marginalization-prior chain of ...LastFrame
-                          (:1002, Marginalize :1663)
+                          (:1002, Marginalize :1663); without a prior, as the
+                          tracker runs it, replayed from a CUDA graph on the
+                          card (PoseInertialGraph)
 
 Small dense Gauss-Newton / LM problems with forward-mode Jacobians
 (`torch.func.jacfwd`, where the JAX package uses `jax.jacfwd`). Every
 accept/reject stays on the device (`torch.where`), and the factorizations use
 the `_ex` forms, which do not stop to check their result on the host. The
 one host sync left is `pose_inertial_optimize`'s eigendecomposition of the
-prior, taken once per call: the JAX package recomputes it inside every
-residual evaluation, but the prior does not depend on the increment.
+prior, taken once per call that has a prior: the JAX package recomputes it
+inside every residual evaluation, but the prior does not depend on the
+increment.
 """
 
 from __future__ import annotations
@@ -182,12 +185,14 @@ def empty_prior(device="cuda") -> VIPrior:
 
 
 def pose_inertial_optimize(cam: cameras.Camera, state0: VIState, prev: VIState,
-                           pre: imu_mod.Preintegrated, obs, Tcb: tuple, prior: VIPrior):
+                           pre: imu_mod.Preintegrated, obs, Tcb: tuple, prior: VIPrior | None):
     """Optimize the current frame's 15-dof state against the reprojections
     `obs` (a pose_opt.PoseObs), the preintegration from `prev` (fixed), the
     bias random walk and the prior: 2 rounds of 5 LM steps, the inliers
     re-classified between them. Returns (state, inliers, n_inliers,
-    next_prior)."""
+    next_prior). With `prior` None there is no prior factor and no next
+    prior (None): PoseInertialOptimizationLastKeyFrame, as the tracker runs
+    it."""
     Rcb, tcb = Tcb
     dev, dt = state0.pwb.device, state0.pwb.dtype
     eye = lambda n: torch.eye(n, dtype=dt, device=dev)
@@ -197,14 +202,15 @@ def pose_inertial_optimize(cam: cameras.Camera, state0: VIState, prev: VIState,
     # covariance accumulated over the preintegration window
     walk_info = torch.linalg.inv_ex(pre.C[9:15, 9:15] + 1e-9 * eye(6))[0]
     walk_sqrt = torch.linalg.cholesky_ex(walk_info + 1e-9 * eye(6))[0].T
-    # square root of the prior by eigen-clipping (H may be only PSD). A
-    # prior with a NaN gives a NaN root, as in the JAX package (whose eigh
-    # returns NaN where torch's raises); see the note on NaN Jacobians below
-    Hp = torch.where(prior.valid, prior.H, torch.zeros_like(prior.H))
-    finite = torch.isfinite(Hp).all()
-    evals, evecs = torch.linalg.eigh(torch.where(finite, Hp, 0.0) + 1e-9 * eye(15))
-    prior_sqrt = torch.where(finite, (evecs * torch.sqrt(torch.clamp_min(evals, 0.0))) @ evecs.T,
-                             torch.nan)
+    if prior is not None:
+        # square root of the prior by eigen-clipping (H may be only PSD). A
+        # prior with a NaN gives a NaN root, as in the JAX package (whose eigh
+        # returns NaN where torch's raises)
+        Hp = torch.where(prior.valid, prior.H, torch.zeros_like(prior.H))
+        finite = torch.isfinite(Hp).all()
+        evals, evecs = torch.linalg.eigh(torch.where(finite, Hp, 0.0) + 1e-9 * eye(15))
+        prior_sqrt = torch.where(finite, (evecs * torch.sqrt(torch.clamp_min(evals, 0.0))) @ evecs.T,
+                                 torch.nan)
     is_stereo = obs.u_right >= 0
     delta2 = torch.where(is_stereo, robust.CHI2_STEREO, robust.CHI2_MONO)
 
@@ -228,17 +234,20 @@ def pose_inertial_optimize(cam: cameras.Camera, state0: VIState, prev: VIState,
         st = unpack(x)
         r_vis, chi2 = vis_residuals(st)
         w = torch.where(inlier, robust.huber_weight(chi2, delta2) * info_level, 0.0)
+        # a row of weight 0 adds exactly 0 to the residual and the Jacobian:
+        # sqrt is taken only where w > 0, since its forward derivative at 0 is
+        # NaN, which would make every step NaN (the JAX package keeps that
+        # fault, ROADMAP C1)
+        sqrt_w = torch.where(w > 0, torch.sqrt(torch.clamp_min(w, torch.finfo(dt).tiny)), 0.0)
         r_imu = imu_mod.inertial_residual(prev.Rwb, prev.pwb, prev.vel, st.Rwb, st.pwb,
                                           st.vel, prev.bias, pre)
-        r_pr = torch.cat([lie.so3_log(prior.Rwb.T @ st.Rwb), st.pwb - prior.pwb,
-                          st.vel - prior.vel, st.bias - prior.bias])
-        return torch.cat([(r_vis * torch.sqrt(w)[:, None]).reshape(-1), info9_sqrt @ r_imu,
-                          walk_sqrt @ (st.bias - prev.bias), prior_sqrt @ r_pr])
+        rs = [(r_vis * sqrt_w[:, None]).reshape(-1), info9_sqrt @ r_imu,
+              walk_sqrt @ (st.bias - prev.bias)]
+        if prior is not None:
+            rs.append(prior_sqrt @ torch.cat([lie.so3_log(prior.Rwb.T @ st.Rwb), st.pwb - prior.pwb,
+                                              st.vel - prior.vel, st.bias - prior.bias]))
+        return torch.cat(rs)
 
-    # As in the JAX package, a visual row of weight 0 (an invalid or outlier
-    # observation) has sqrt(w) at 0, whose forward derivative is NaN: with
-    # one such row every step is NaN and rejected, the state stays state0,
-    # and the next prior is NaN (ROADMAP C)
     inlier = obs.valid
     x = torch.zeros(15, dtype=dt, device=dev)
     for _ in range(2):
@@ -255,8 +264,57 @@ def pose_inertial_optimize(cam: cameras.Camera, state0: VIState, prev: VIState,
         inlier = obs.valid & (chi2 <= delta2)
 
     st = unpack(x)
+    if prior is None:
+        return st, inlier, inlier.sum(), None
     # the next frame's prior: J^T J of all factors at the solution
     J = jacfwd(lambda xx: full_residuals(xx, inlier))(x)
     next_prior = VIPrior(Rwb=st.Rwb, pwb=st.pwb, vel=st.vel, bias=st.bias, H=J.T @ J,
                          valid=torch.ones((), dtype=torch.bool, device=dev))
     return st, inlier, inlier.sum(), next_prior
+
+
+class PoseInertialGraph:
+    """`pose_inertial_optimize` without a prior, as the tracker calls it on
+    every IMU-ready frame, replayed from a CUDA graph. Its 10 LM steps of
+    forward-mode Jacobians are ~11k small kernels whose launches bound the
+    host (PERF.md section 5); a replay issues them at once. One graph per
+    camera and input shapes, captured on the first call after two warm-up
+    runs (library handles and workspaces); each call copies its inputs into
+    the graph's buffers. The raw IMU samples are not read by the
+    optimization and vary in number, so they are left out. The outputs are
+    the graph's own tensors, overwritten by the next call. On CPU tensors
+    it is `pose_inertial_optimize` itself."""
+
+    def __init__(self):
+        self._graphs = {}
+
+    def __call__(self, cam: cameras.Camera, state0: VIState, prev: VIState,
+                 pre: imu_mod.Preintegrated, obs, Tcb: tuple):
+        if state0.pwb.device.type != "cuda":
+            return pose_inertial_optimize(cam, state0, prev, pre, obs, Tcb, None)
+        pre = pre._replace(acc=pre.acc[:0], gyr=pre.gyr[:0], dts=pre.dts[:0])
+        inputs = (state0, prev, pre, obs, tuple(Tcb))
+        flat = [t for part in inputs for t in part]
+        key = (cam,) + tuple((t.shape, t.dtype) for t in flat)
+        if key not in self._graphs:
+            self._graphs[key] = self._capture(cam, inputs)
+        buffers, graph, out = self._graphs[key]
+        for buf, t in zip(buffers, flat):
+            buf.copy_(t)
+        graph.replay()
+        return out
+
+    @staticmethod
+    def _capture(cam, inputs):
+        static = tuple(type(part)(*(t.clone() for t in part)) if hasattr(part, "_fields")
+                       else tuple(t.clone() for t in part) for part in inputs)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                pose_inertial_optimize(cam, *static, None)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = pose_inertial_optimize(cam, *static, None)
+        return [t for part in static for t in part], graph, out

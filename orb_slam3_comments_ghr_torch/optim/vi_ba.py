@@ -12,9 +12,13 @@ The landmarks are Schur-eliminated with `optim/ba.py`'s pieces (the
 reprojection factor touches only the 6 pose components, so that system
 stays 6 wide); the inertial and walk factors are added to the 15-wide
 reduced system, which one scaled dense Cholesky then solves. Each LM step
-is accepted or rejected on the device. The point-chunked whole-map solver
-(`vi_bundle_adjust_chunked`) and the second-camera rig slots are not ported
-yet.
+is accepted or rejected on the device.
+
+The whole-map FullInertialBA (`vi_bundle_adjust_chunked`, the inertial GBA
+after a loop closure) runs the same LM in bites with the visual Schur system
+assembled one point chunk at a time (`optim/ba.py`'s `_chunk_schur`, fed the
+body-frame Jacobians), so memory stays flat as the map grows and no landmark
+is left out. The second-camera rig slots are not ported yet (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -207,6 +211,20 @@ def _solve_body_system(prob: VIBAProblem, inertial, walk, S6, rhs6, lam):
     return torch.where(prob.fixed[:, None] & pose_mask[None, :], 0.0, dx)
 
 
+def _lm_accept(cam, prob: VIBAProblem, state, dx, dp_pts, cost0, lam):
+    """The LM test on the device: the states (Rwb, pwb, vel, bias, p) moved
+    by the step (dx, dp_pts) where that lowers the total cost below cost0,
+    and the damping halved there, else multiplied by 5."""
+    Rwb, pwb, vel, bias, p = state
+    Rwb_n = Rwb @ lie.so3_exp(dx[:, :3])
+    pwb_n, vel_n, bias_n = pwb + dx[:, 3:6], vel + dx[:, 6:9], bias + dx[:, 9:15]
+    p_n = p + dp_pts
+    better = _total_cost(cam, prob, Rwb_n, pwb_n, vel_n, bias_n, p_n, True) < cost0
+    return (torch.where(better, Rwb_n, Rwb), torch.where(better, pwb_n, pwb),
+            torch.where(better, vel_n, vel), torch.where(better, bias_n, bias),
+            torch.where(better, p_n, p), torch.where(better, lam * 0.5, lam * 5.0))
+
+
 def _vi_ba_loop(cam, prob: VIBAProblem, lam, iters: int):
     K = prob.Rwb.shape[0]
     Rwb, pwb, vel, bias, p = prob.Rwb, prob.pwb, prob.vel, prob.bias, prob.p
@@ -223,15 +241,8 @@ def _vi_ba_loop(cam, prob: VIBAProblem, lam, iters: int):
         S6, rhs6 = ba._reduced_system(prob.obs_cam, H_cc6, b_c6, W, Hpp_inv, b_p, K)
         dx = _solve_body_system(prob, inertial, walk, S6, rhs6, lam)
         dp_pts = ba._backsubstitute(prob.obs_cam, W, Hpp_inv, b_p, prob.p_valid, dx[:, :6])
-
-        Rwb_n = Rwb @ lie.so3_exp(dx[:, :3])
-        pwb_n, vel_n, bias_n = pwb + dx[:, 3:6], vel + dx[:, 6:9], bias + dx[:, 9:15]
-        p_n = p + dp_pts
-        better = _total_cost(cam, prob, Rwb_n, pwb_n, vel_n, bias_n, p_n, True) < cost0
-        Rwb, pwb = torch.where(better, Rwb_n, Rwb), torch.where(better, pwb_n, pwb)
-        vel, bias = torch.where(better, vel_n, vel), torch.where(better, bias_n, bias)
-        p = torch.where(better, p_n, p)
-        lam = torch.where(better, lam * 0.5, lam * 5.0)
+        Rwb, pwb, vel, bias, p, lam = _lm_accept(cam, prob, (Rwb, pwb, vel, bias, p), dx,
+                                                 dp_pts, cost0, lam)
     return Rwb, pwb, vel, bias, p, lam
 
 
@@ -252,3 +263,49 @@ def vi_bundle_adjust(cam: cameras.Camera, prob: VIBAProblem, iters: int = 10):
     chi2, delta2 = _vis_terms(cam, prob, Rwb, pwb, p, False)[4::2]
     inlier = prob.obs_valid & (chi2 <= delta2)
     return Rwb, pwb, vel, bias, p, inlier, _total_cost(cam, prob, Rwb, pwb, vel, bias, p, False)
+
+
+def _vi_vis_chunk(cam, prob_c: VIBAProblem, Rwb, pwb, lam, K: int):
+    """One point chunk's share of the 6-wide reduced body system: S
+    (K,K,6,6), rhs (K,6), the chunk's robust visual cost, and its W, Hpp^-1
+    and b_p for the back-substitution."""
+    r, Jpose, Jp, w, chi2, row_mask, delta2 = _vis_terms(cam, prob_c, Rwb, pwb, prob_c.p, True)
+    cost = ba._cost(chi2, delta2, prob_c.obs_valid, True)
+    S, rhs, _, W, Hpp_inv, b_p = ba._chunk_schur(prob_c, r, Jpose, Jp, w, row_mask, lam, K)
+    return S, rhs, cost, W, Hpp_inv, b_p
+
+
+def vi_bundle_adjust_chunked(cam: cameras.Camera, prob: VIBAProblem, lam0: torch.Tensor,
+                             iters: int = 2, point_chunk: int = 2048, obs_rig=None):
+    """A bite of `iters` whole-map VI-LM iterations with the damping
+    threaded in and out, the visual Schur system summed over point chunks.
+    P must be a multiple of point_chunk (pad with invalid points). Returns
+    (Rwb, pwb, vel, bias, p, lam), so that the host can chain bites and
+    stop between them (mbStopGBA, LoopClosing.cc:3067). `obs_rig`, the
+    second-camera slot of the fisheye rig, is not ported (ROADMAP A7)."""
+    if obs_rig is not None:
+        raise NotImplementedError("rig observations in the VI-BA are not ported yet (ROADMAP A7)")
+    K = prob.Rwb.shape[0]
+    dev, dt = prob.pwb.device, prob.pwb.dtype
+    Rwb, pwb, vel, bias, p = prob.Rwb, prob.pwb, prob.vel, prob.bias, prob.p
+    lam = lam0.to(dt)
+    for _ in range(iters):
+        S6 = torch.zeros((K, K, 6, 6), dtype=dt, device=dev)
+        rhs6 = torch.zeros((K, 6), dtype=dt, device=dev)
+        cost0 = torch.zeros((), dtype=dt, device=dev)
+        Ws, Hinvs, b_ps = [], [], []
+        for prob_c in ba.point_chunks(prob, p, point_chunk):
+            S_c, rhs_c, cost_c, W, Hpp_inv, b_p = _vi_vis_chunk(cam, prob_c, Rwb, pwb, lam, K)
+            S6, rhs6, cost0 = S6 + S_c, rhs6 + rhs_c, cost0 + cost_c
+            Ws.append(W)
+            Hinvs.append(Hpp_inv)
+            b_ps.append(b_p)
+        inertial = _inertial_terms(prob, Rwb, pwb, vel, bias)
+        walk = _walk_terms(prob, bias)
+        cost0 = cost0 + torch.sum(inertial[0] ** 2) + torch.sum(walk[0] ** 2)
+        dx = _solve_body_system(prob, inertial, walk, S6, rhs6, lam)
+        dp_pts = ba._backsubstitute(prob.obs_cam, torch.cat(Ws), torch.cat(Hinvs),
+                                    torch.cat(b_ps), prob.p_valid, dx[:, :6])
+        Rwb, pwb, vel, bias, p, lam = _lm_accept(cam, prob, (Rwb, pwb, vel, bias, p), dx,
+                                                 dp_pts, cost0, lam)
+    return Rwb, pwb, vel, bias, p, lam

@@ -12,10 +12,10 @@ correction (RunGlobalBundleAdjustment :3067).
 The map arithmetic stays on the host in numpy float64, as in the JAX
 package; tensors go to the device only at the calls of `search_by_window`,
 `sim3_ransac` / `optimize_sim3`, `programs.fuse_project` (the window-match
-kernel on the card) and the pose graph. The global BA runs inline, as the
-JAX package's `async_mapping=False` branch does. The inertial whole-map and
-merge BAs are not ported (ROADMAP A6.3), and `SLAM` refuses loop closing
-for the inertial sensors.
+kernel on the card) and the pose graph. The global BA (visual, or the
+mapper's `full_inertial_ba` in an IMU-initialized map) runs inline, as the
+JAX package's `async_mapping=False` branch does; an inertial weld ends in
+the mapper's `merge_inertial_ba`.
 """
 
 from __future__ import annotations
@@ -33,9 +33,6 @@ from ..optim import sim3 as sim3_mod
 from ..utils.config import SlamConfig
 from ..utils.device import resolve_device
 from . import programs
-
-_INERTIAL_BA = "the inertial whole-map and merge BAs are not ported yet (ROADMAP A6.3)"
-
 
 class LoopCloser:
     def __init__(self, cam: cameras.Camera, cfg: SlamConfig, map_state: MapState,
@@ -344,7 +341,7 @@ class LoopCloser:
         mid = int(m.kf_map_id[kf])
         if self.cfg.is_inertial and m.map_imu_init.get(mid, False):
             if len(m.kf_ids(mid)) < 200:
-                raise NotImplementedError(_INERTIAL_BA)
+                self.mapper.full_inertial_ba(iters=7)
         else:
             self.mapper.global_ba(iters=10)
         m.version += 1
@@ -401,8 +398,9 @@ class LoopCloser:
         loop_window = [cand] + m.covisible_kfs(cand, k=15, min_weight=15)
         self._fuse_points_into(window, m.local_point_ids(loop_window, cap=self.cfg.local_points_cap))
         if both_inertial:
-            raise NotImplementedError(_INERTIAL_BA)
-        self.mapper.local_ba(kf)
+            self.mapper.merge_inertial_ba(kf, cand)
+        else:
+            self.mapper.local_ba(kf)
         # the merge variant of the essential graph (Optimizer.cc:5683): the
         # target map's keyframes and the weld window stay fixed; the rest of
         # the absorbed map follows through the graph

@@ -116,8 +116,8 @@ class Tracker:
         self.kf_preint: dict[int, imu_mod.Preintegrated] = {}  # kf -> from its previous KF
         self.last_kf_time: float = 0.0
         self.body_vel = np.zeros(3, np.float32)  # body velocity in world
-        self.vi_prior: Optional[inertial.VIPrior] = None
         self._pre_frame: Optional[imu_mod.Preintegrated] = None  # from the last frame
+        self._pose_inertial = inertial.PoseInertialGraph()  # the VI refinement
         self._last_prediction = None  # (R, t) predicted for the current frame
         self.device = resolve_device(device)
         self.generator = torch.Generator(device=self.device)
@@ -279,7 +279,7 @@ class Tracker:
     def apply_world_transform(self, s: float, R: np.ndarray, t: np.ndarray):
         """Carry the live pose through a map transform world' = s R world + t
         (the IMU initialization's gravity and scale alignment): the camera
-        centre moves with the world, Rcw' = Rcw R^T. The VI prior and the
+        centre moves with the world, Rcw' = Rcw R^T. The motion model and the
         cached prediction belong to the old world and are dropped
         (UpdateFrameIMU, Tracking.cc:4887)."""
         c = -self.last_R.T @ self.last_t
@@ -289,7 +289,6 @@ class Tracker:
         self.last_t = (-Rcw2 @ c2).astype(np.float32)
         self.body_vel = (s * (R @ self.body_vel)).astype(np.float32)
         self.velocity = None
-        self.vi_prior = None
         self._last_prediction = None
 
     def _register_kf(self, kf: int):
@@ -503,6 +502,12 @@ class Tracker:
     def _track_frame(self, feats: Features, timestamp: float) -> bool:
         cfg = self.cfg
         close = None if cfg.is_mono else self._close_features(feats)
+        # the previous frame's pose, read before the reference-keyframe
+        # fallback can overwrite last_R / last_t: the velocities below are
+        # taken against it (mVelocity = Tcw_cur * Twc_last, Tracking.cc).
+        # The JAX package reads it after the fallback (ROADMAP C9)
+        prev_pose = self._current_pose()
+        prev_R, prev_t = self.last_R.copy(), self.last_t.copy()
         if self._precomputed is not None and self.state == OK:
             res = self._precomputed[0]
             lp, ids, R0, t0 = self._prepared
@@ -537,8 +542,6 @@ class Tracker:
             if n_inl < cfg.min_track_matches:
                 return False
 
-        prev_pose = self._current_pose()
-        prev_R, prev_t = self.last_R.copy(), self.last_t.copy()
         self.last_R = res.R
         self.last_t = res.t
         if self._imu_ready() and self.last_kf >= 0:
@@ -576,8 +579,17 @@ class Tracker:
         (PoseInertialOptimizationLastKeyFrame, Optimizer.cc:435): the tracked
         matches as monocular reprojections, the preintegration from the last
         keyframe (the prologue already advanced it to this frame) and the
-        bias random walk, on the 15-dof body state, with the VI prior chain.
-        The result comes home in one packed copy."""
+        bias random walk, on the 15-dof body state, replayed from a CUDA
+        graph on the card (`inertial.PoseInertialGraph`). The result comes
+        home in one packed copy.
+
+        No marginalization prior is chained from frame to frame, where the
+        JAX package chains one (ROADMAP C1, repaired in the port): the
+        reference's prior (PoseInertialOptimizationLastFrame, :1002) sits on
+        the previous frame's state, tied to the current one by the
+        frame-to-frame preintegration. Here the inertial factor runs from the
+        last keyframe, so that prior would pull the current frame toward the
+        previous frame's pose with the information of all its matches."""
         m = self.map
         kf = self.last_kf
         pre = self.imu.preintegrate_since_kf(self.last_kf_time, timestamp)
@@ -608,11 +620,7 @@ class Tracker:
             u_right=torch.full((sel.shape[0],), -1.0, device=self.device),
             level=torch.where(ok, feats.level[idx], 0), valid=ok,
         )
-        st, _, n2, nxt = inertial.pose_inertial_optimize(
-            self.cam, state0, prev, pre, obs, (Rcb_t, tcb_t),
-            self.vi_prior if self.vi_prior is not None
-            else inertial.empty_prior(device=self.device),
-        )
+        st, _, n2, _ = self._pose_inertial(self.cam, state0, prev, pre, obs, (Rcb_t, tcb_t))
         flat = torch.cat([n2.reshape(1).to(torch.float32), st.Rwb.reshape(9), st.pwb, st.vel,
                           st.bias]).cpu().numpy()
         if int(flat[0]) >= self.cfg.min_track_matches:
@@ -623,7 +631,6 @@ class Tracker:
             self.last_t = -Rwc_n.T @ cw_n
             self.body_vel = flat[13:16].copy()
             self.imu.bias = flat[16:22].copy()
-            self.vi_prior = nxt
 
     def _bow_match(self, feats: Features, node: np.ndarray, kf: int, ratio: float):
         """SearchByBoW (ORBmatcher.cc:262): the frame's features (BoW nodes

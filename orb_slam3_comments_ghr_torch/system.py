@@ -12,9 +12,8 @@ loop closing (`enable_loop_closing`, on by default) inline per keyframe.
 The system runs on one device: the card (`torch.device("cuda")`) unless the
 caller passes `device="cpu"`. The per-frame and per-keyframe programs run
 there; the map and the IMU sample queue stay on the host. Not ported yet,
-and refused with NotImplementedError: loop closing with an IMU (ROADMAP
-A6.3), asynchronous mapping, fisheye (A7), distributed BA (A8) and atlas
-files.
+and refused with NotImplementedError: asynchronous mapping, fisheye
+(ROADMAP A7), distributed BA (A8) and atlas files.
 """
 
 from __future__ import annotations
@@ -41,9 +40,6 @@ from .utils.device import resolve_device
 
 
 def _check_supported(cam: cameras.Camera, cfg: SlamConfig):
-    if cfg.enable_loop_closing and cfg.is_inertial:
-        raise NotImplementedError("loop closing with an IMU is not ported yet (ROADMAP A6.3): "
-                                  "set enable_loop_closing=False")
     if cfg.dba_devices != 0:
         raise NotImplementedError("distributed BA is not ported yet (ROADMAP A8): set dba_devices=0")
     if cfg.async_mapping:
@@ -197,7 +193,7 @@ class SLAM:
         t.last_R = self.map.kf_R[kf].copy()
         t.last_t = self.map.kf_t[kf].copy()
         t.body_vel = self.map.kf_vel[kf].copy()
-        t.velocity = t.vi_prior = t._last_prediction = None
+        t.velocity = t._last_prediction = None
 
     # --------------------------------------------------------------- queries
     @property
@@ -248,7 +244,6 @@ class SLAM:
         self.tracker.last_kf = -1
         self.tracker._init_feats = None
         self.tracker.velocity = None
-        self.tracker.vi_prior = None
         self.tracker.kf_preint.clear()
         if self.imu is not None:
             self.imu.queue.clear()

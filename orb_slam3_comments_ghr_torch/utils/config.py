@@ -2,8 +2,9 @@
 src/Settings.cc — same knobs, dataclass form; YAML ingestion in io.config).
 
 Copied unchanged from `orb_slam3_comments_ghr_tpu/utils/config.py`, so the
-port needs no JAX. The port runs all six sensors; `SLAM` raises
-NotImplementedError for loop closing and async mapping."""
+port needs no JAX. The port runs all six sensors, with loop closing on or
+off; `SLAM` raises NotImplementedError for async mapping, a fisheye camera
+(ROADMAP A7) and distributed BA (A8)."""
 
 from __future__ import annotations
 

@@ -268,13 +268,16 @@ def render_features(world: World, cam, R_cw: np.ndarray, t_cw: np.ndarray, n_fea
 
 
 def vi_sequence(n_frames: int, cam_hz: float = 20.0, imu_hz: float = 200.0, radius: float = 2.0,
-                look_at=(0.0, 0.0, 10.0), arc: float = 0.8, gravity_tilt=(0.15, -0.1)):
+                look_at=(0.0, 0.0, 10.0), arc: float = 0.8, gravity_tilt=(0.15, -0.1),
+                outward: bool = False):
     """Camera poses and consistent IMU samples along a smooth analytic arc
     (the JAX package's `vi_sequence`, the same arithmetic, so the same
     rows). The world is not gravity-aligned: gravity points along
     R_tilt (0, 0, -g), so the IMU initialization has work to do. Body
-    frame == camera frame (Tbc = I). Returns (poses, imu_rows (M,7),
-    timestamps)."""
+    frame == camera frame (Tbc = I). With `outward`, the camera looks
+    radially out from the arc's centre, as `circular_trajectory`'s outward
+    ring does (a turn that revisits its start, for loop closing), instead
+    of at `look_at`. Returns (poses, imu_rows (M,7), timestamps)."""
     from ..ops import lie
     from ..optim.imu import GRAVITY
 
@@ -284,7 +287,7 @@ def vi_sequence(n_frames: int, cam_hz: float = 20.0, imu_hz: float = 200.0, radi
     def pose_at(t):
         a = arc * 2 * np.pi * t / T_total
         c = np.array([radius * np.sin(a), 0.3 * np.sin(2 * a), 0.2 * np.sin(3 * a)])
-        fwd = look - c
+        fwd = np.array([np.sin(a), 0.0, np.cos(a)]) if outward else look - c
         fwd = fwd / np.linalg.norm(fwd)
         right = np.cross(fwd, np.array([0.0, -1.0, 0.0]))
         right /= np.linalg.norm(right)

@@ -1,0 +1,68 @@
+"""Run chosen phases of `chip_smoke.py` from the tree of a checkout, on the
+card, to compare two versions of the port in one call.
+
+    python scripts/smoke_phases.py [--tree DIR] --phases 7 8 9 10a 10b
+
+DIR (default: this checkout) is the root of a checkout, for example an
+earlier commit unpacked by `git archive <commit> | tar -x -C DIR` into a
+git-ignored directory; its `chip_smoke.py` and its package are the ones
+imported. Each phase runs as the whole script runs it (the window-match
+kernel built from DIR's sources first) and prints its own lines; then one
+JSON line gives the seconds each phase took and what it returned (the
+launches and matcher calls; the runs' outcome). Phases: 7
+(stereo-inertial), 8 (RGB-D-inertial), 9 (mono-inertial), 10a (the feature
+loop), 10b (the kidnap and merge), 11 (inertial loop closing: (a), (b) and
+(c) on (a)'s map; from a tree that has it). Needs one CUDA card.
+"""
+
+import argparse
+import json
+import os
+import sys
+import time
+
+PHASES = {"7": "phase7_stereo_inertial", "8": "phase8_rgbd_inertial",
+          "9": "phase9_mono_inertial", "10a": "phase10_feature_loop", "10b": "phase10_merge",
+          "11": None}
+
+
+def phase11(chip_smoke, window_match, device):
+    """Phase 11's three runs, as chip_smoke.main runs them."""
+    n, calls, _, loop, snap = chip_smoke.phase11_inertial_loop(window_match, device)
+    n_b, calls_b, merge = chip_smoke.phase11_kidnap(window_match, device)
+    gba = chip_smoke.phase11_full_inertial_ba(snap, device)
+    return n + n_b, {"a": calls, "b": calls_b}, dict(inertial_loop=loop, inertial_merge=merge,
+                                                     full_inertial_ba=gba)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tree", default=os.path.join(os.path.dirname(__file__), ".."))
+    ap.add_argument("--phases", nargs="+", choices=tuple(PHASES), required=True)
+    args = ap.parse_args(argv)
+    sys.path.insert(0, os.path.abspath(args.tree))
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("smoke_phases.py needs a CUDA card")
+    import chip_smoke
+    from orb_slam3_comments_ghr_torch.ops import window_match
+
+    print(f"tree {os.path.abspath(args.tree)}: {chip_smoke.__file__}")
+    print(chip_smoke.card_line())
+    window_match.build()
+    device = torch.device("cuda", 0)
+    out = {}
+    for phase in args.phases:
+        t0 = time.perf_counter()
+        result = (phase11(chip_smoke, window_match, device) if phase == "11"
+                  else getattr(chip_smoke, PHASES[phase])(window_match, device))
+        out[phase] = dict(seconds=time.perf_counter() - t0, launches=result[0], calls=result[1],
+                          result=result[-2] if phase == "7" else result[-1])
+        print(f"phase {phase} passed in {out[phase]['seconds']:.1f} s")
+    print(json.dumps(out, default=str))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

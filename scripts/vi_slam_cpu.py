@@ -16,7 +16,18 @@ Both use the near-ideal IMU calibration of `bench.py` (noise 1e-4 / 1e-3,
 walk 1e-6 / 1e-5) and feed each frame the IMU rows in (t_{i-1}, t_i].
 
     python scripts/vi_slam_cpu.py --package jax|torch --sensor imu_stereo|imu_rgbd \\
-        [--frames N] [--stereo-count once|twice] [--threads 4] [--dump FILE.npz]
+        [--frames N] [--arc TURNS] [--loop-closing] [--stereo-count once|twice] \\
+        [--threads 4] [--dump FILE.npz]
+
+- `--sensor imu_stereo_loop` (phase 11 (a)): the configuration of
+  `imu_stereo` with loop closing on (`loop_requires_viba2=False`,
+  `loop_min_kfs=8`, the gates of `tests/test_inertial_merge.py`), on
+  `vi_sequence(N, arc=TURNS, outward=True)`, an outward-looking turn
+  inside the textured room of `tests/test_image_loopclosing.py`
+  (`gt_replay.make_room_scene(33, ...)`), left and right views.
+
+`--arc` sets TURNS (default the setup's) and runs `vi_sequence(N,
+arc=TURNS)` over the N frames in place of the setup's sequence.
 
 `--stereo-count twice` runs the JAX package's keyframe decision with the
 count of stereo observations the port uses (see scripts/depth_slam_cpu.py).
@@ -46,7 +57,12 @@ SETUPS = {
                                 max_frames_between_kf=10, min_init_matches=60)),
     "imu_rgbd": (61, 60, dict(n_features=768, local_points_cap=2048, local_ba_points=2048,
                               max_frames_between_kf=5)),
+    "imu_stereo_loop": (33, 200, dict(n_features=1024, local_points_cap=4096,
+                                      local_ba_points=2048, max_frames_between_kf=10,
+                                      min_init_matches=60, enable_loop_closing=True,
+                                      loop_requires_viba2=False, loop_min_kfs=8)),
 }
+LOOP_ARC = 1.1  # turns of imu_stereo_loop's sequence
 NOISE = dict(noise_g=1e-4, noise_a=1e-3, walk_g=1e-6, walk_a=1e-5)
 
 
@@ -55,6 +71,8 @@ def main(argv=None) -> int:
     ap.add_argument("--package", choices=("jax", "torch"), required=True)
     ap.add_argument("--sensor", choices=tuple(SETUPS), required=True)
     ap.add_argument("--frames", type=int, default=None)
+    ap.add_argument("--arc", type=float, default=None,
+                    help="turns of vi_sequence over the frames (default: the setup's sequence)")
     ap.add_argument("--stereo-count", choices=("once", "twice"), default="once",
                     help="JAX package only: how its keyframe decision counts stereo observations")
     ap.add_argument("--threads", type=int, default=4, help="torch CPU threads")
@@ -99,11 +117,22 @@ def main(argv=None) -> int:
     seed, n, widths = SETUPS[args.sensor]
     n = args.frames or n
     cam = cameras.euroc_cam0()
-    scene = synthetic.make_textured_scene(seed)
-    poses, imu_rows, times = synthetic.vi_sequence(SETUPS[args.sensor][1])
-    stereo = args.sensor == "imu_stereo"
+    ring = args.sensor == "imu_stereo_loop"
+    arc = args.arc or (LOOP_ARC if ring else None)
+    poses, imu_rows, times = (synthetic.vi_sequence(SETUPS[args.sensor][1]) if arc is None
+                              else synthetic.vi_sequence(n, arc=arc, outward=ring))
+    if ring:
+        from orb_slam3_comments_ghr_torch.utils import gt_replay
+
+        room = gt_replay.make_room_scene(seed, np.stack([-R.T @ t for R, t in poses]),
+                                         margin=4.0, span=20.0)
+        render = lambda R, t: gt_replay.render_room(room, cam, R, t)
+    else:
+        scene = synthetic.make_textured_scene(seed)
+        render = lambda R, t: synthetic.render_image(scene, cam, R, t)
+    stereo = args.sensor != "imu_rgbd"
     slam = make(config.SlamConfig(sensor=config.IMU_STEREO if stereo else config.IMU_RGBD,
-                                  enable_loop_closing=False, **widths))
+                                  **{"enable_loop_closing": False, **widths}))
     dumps = []
     if args.dump:
         process_keyframe = slam.mapper.process_keyframe
@@ -125,10 +154,9 @@ def main(argv=None) -> int:
         chunk = imu_rows[(imu_rows[:, 0] > (times[i - 1] if i else -1.0))
                          & (imu_rows[:, 0] <= times[i])]
         rows = chunk if len(chunk) else None
-        img = u8(synthetic.render_image(scene, cam, R, t))
+        img = u8(render(R, t))
         if stereo:
-            pose = slam.track_stereo(img, u8(synthetic.render_image(scene, cam, R, t - b)),
-                                     times[i], imu_samples=rows)
+            pose = slam.track_stereo(img, u8(render(R, t - b)), times[i], imu_samples=rows)
         else:
             pose = slam.track_rgbd(img, synthetic.depth_map(scene, cam, R, t), times[i],
                                    imu_samples=rows)
@@ -146,6 +174,8 @@ def main(argv=None) -> int:
            .astype(np.float32)) for i in range(n)]
     print(json.dumps(dict(
         package=args.package, sensor=args.sensor, stereo_count=args.stereo_count, frames=n,
+        arc=arc, loops=getattr(slam.loopcloser, "n_loops", 0),
+        merges=getattr(slam.loopcloser, "n_merges", 0), maps=slam.map.n_maps,
         first_tracked=first, imu_init_frame=imu_init_frame, viba1=bool(slam.mapper.viba1_done), tracked=tracked,
         keyframes=slam.n_keyframes(), points=slam.n_map_points(),
         ate_trajectory_m=evaluation.ate_rmse(slam.trajectory(), gt, with_scale=False))))

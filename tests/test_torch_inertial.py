@@ -14,11 +14,16 @@ same inlier set, the next prior's information within 1e-3 of its largest
 entry.
 
 `pose_inertial_optimize` has a fault in the JAX package that the port
-keeps (ROADMAP C): a visual row of weight 0 (an invalid or outlier match,
-as every padded row of the tracker's local map) has sqrt(w) at 0, whose
-forward derivative is NaN. With one such row every step is NaN and
-rejected: the state stays the prediction, and the next prior is NaN.
-`test_invalid_row_freezes_the_state` shows it in both packages."""
+repairs (ROADMAP C1, a deliberate divergence): a visual row of weight 0 (an
+invalid or outlier match, as every padded row of the tracker's local map)
+has sqrt(w) at 0, whose forward derivative is NaN. With one such row every
+JAX step is NaN and rejected: the state stays the prediction, and the next
+prior is NaN. In the port such a row adds exactly 0 to the residual and the
+Jacobian, so a run with zero-weight rows equals the run with those rows
+removed: the same state (1e-6 absolute), inliers and count, and the next
+prior's information within 1e-6 of its largest entry (the products sum
+another number of terms). `test_invalid_row_freezes_the_state` shows the
+JAX fault and the port's repair."""
 
 import jax
 import jax.numpy as jnp
@@ -133,20 +138,61 @@ def test_pose_inertial_optimize_against_jax():
     np.testing.assert_allclose(st2.pwb.numpy(), np.asarray(sj2.pwb), rtol=0, atol=1e-4)
 
 
+def _off_prediction(tin):
+    """The port's inputs with the start moved 3.7 cm off the (exact)
+    prediction, so that a working refinement has somewhere to go."""
+    state0 = tin[0]
+    moved = state0._replace(pwb=state0.pwb + torch.tensor([0.03, -0.02, 0.01]))
+    return (moved,) + tuple(tin[1:])
+
+
 def test_invalid_row_freezes_the_state():
-    """The fault kept from the JAX package (module docstring): with one
-    invalid match neither package moves off the prediction, and both
-    return a NaN prior; the port's next call takes that prior without
-    raising, and again does not move."""
-    jin, tin, _ = _vi_frame(n_valid=255)
+    """The JAX package does not move off the prediction with one invalid
+    match and returns a NaN prior (ROADMAP C1). The port moves toward the
+    true pose, returns a finite prior, and its next call from that prior
+    moves as well."""
+    jin, tin, (_, p2) = _vi_frame(n_valid=255)
     sj, _, nj, pj = jinertial.pose_inertial_optimize(JCAM, *jin, jinertial.empty_prior())
+    assert np.array_equal(np.asarray(sj.pwb), np.asarray(jin[0].pwb))
+    assert np.isnan(np.asarray(pj.H)).any()
+    tin = _off_prediction(tin)
     st, _, nt, pt = tinertial.pose_inertial_optimize(TCAM, *tin, tinertial.empty_prior(device="cpu"))
-    for s, s0 in ((sj.pwb, jin[0].pwb), (st.pwb, tin[0].pwb)):
-        assert np.array_equal(np.asarray(s), np.asarray(s0))
-    assert int(nt) == int(nj)
-    assert np.isnan(np.asarray(pj.H)).any() and bool(torch.isnan(pt.H).any())
-    st2, _, nt2, _ = tinertial.pose_inertial_optimize(TCAM, *tin, pt)
-    assert torch.equal(st2.pwb, tin[0].pwb) and int(nt2) == int(nt)
+    assert int(nt) == int(nj) == 255
+    assert bool(torch.isfinite(pt.H).all()) and bool(pt.valid)
+    p2 = torch.tensor(p2, dtype=torch.float32)
+    err0 = float(torch.linalg.norm(tin[0].pwb - p2))
+    assert not torch.equal(st.pwb, tin[0].pwb)
+    assert float(torch.linalg.norm(st.pwb - p2)) < err0
+    st2, _, nt2, pt2 = tinertial.pose_inertial_optimize(TCAM, *tin, pt)
+    assert not torch.equal(st2.pwb, tin[0].pwb) and int(nt2) == 255
+    assert float(torch.linalg.norm(st2.pwb - p2)) < err0
+    assert bool(torch.isfinite(pt2.H).all())
+
+
+@pytest.mark.parametrize("n_valid,with_prior", [(255, True), (200, True), (200, False)])
+def test_zero_weight_rows_equal_removed_rows(n_valid, with_prior):
+    """Rows of weight 0 (here the invalid tail) change nothing: the port's
+    result equals its run on the valid rows alone, with an (empty) prior
+    and without one (the tracker's call)."""
+    _, tin, (_, p2) = _vi_frame(n_valid=n_valid)
+    tin = _off_prediction(tin)
+    state0, prev, pre, obs, Tcb = tin
+    kept = tpose.PoseObs(*(a[:n_valid] for a in obs))
+    prior = tinertial.empty_prior(device="cpu") if with_prior else None
+    st, inl, n, pt = tinertial.pose_inertial_optimize(TCAM, *tin, prior)
+    sk, inlk, nk, pk = tinertial.pose_inertial_optimize(TCAM, state0, prev, pre, kept, Tcb, prior)
+    assert int(n) == int(nk) == n_valid
+    assert torch.equal(inl[:n_valid], inlk) and not bool(inl[n_valid:].any())
+    for k in ("Rwb", "pwb", "vel", "bias"):
+        np.testing.assert_allclose(getattr(st, k).numpy(), getattr(sk, k).numpy(), rtol=0,
+                                   atol=1e-6, err_msg=k)
+    if with_prior:
+        np.testing.assert_allclose(pt.H.numpy(), pk.H.numpy(), rtol=0,
+                                   atol=1e-6 * float(pk.H.abs().max()))
+    else:
+        assert pt is None and pk is None
+    err0 = float(torch.linalg.norm(state0.pwb - torch.tensor(p2, dtype=torch.float32)))
+    assert float(torch.linalg.norm(st.pwb - torch.tensor(p2, dtype=torch.float32))) < err0
 
 
 # ---------------------------------------------------------------- twins

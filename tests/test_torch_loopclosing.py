@@ -15,6 +15,10 @@ global BA. Keyframe centres land within 0.1 mm and rotations within 1e-5
 of the JAX package's after the correction (the global BA's ten float32 LM
 iterations in another order; the correction itself moves them by
 millimetres).
+The JAX tracker runs with the port's repair of the velocity after a
+reference-keyframe fallback (ROADMAP C9,
+`test_torch_slam.jax_velocity_from_previous_frame`); in both packages a
+frame that follows a fallback must then track by the motion model.
 The kidnap-and-merge twin is `tests/test_torch_merge.py`."""
 
 import numpy as np
@@ -22,6 +26,7 @@ import pytest
 import torch
 
 from test_loopclosing import CAM as JCAM
+from test_torch_slam import jax_velocity_from_previous_frame
 from orb_slam3_comments_ghr_tpu import system as jsystem
 from orb_slam3_comments_ghr_tpu.utils import synthetic as jsynthetic
 from orb_slam3_comments_ghr_torch import convert, system as tsystem
@@ -90,11 +95,37 @@ def _record_correction(box: dict):
     return hooks
 
 
+def _record_fallbacks(box: dict, key: str):
+    """Hook on a SLAM: box[key] gets, per `_track_frame` call, whether the
+    reference-keyframe fallback ran in it."""
+    def hooks(slam):
+        tr = slam.tracker
+        track_frame, track_ref = tr._track_frame, tr._track_reference_kf
+        box[key] = []
+
+        def frame(feats, timestamp):
+            box[key].append(False)
+            return track_frame(feats, timestamp)
+
+        def fallback(feats):
+            box[key][-1] = True
+            return track_ref(feats)
+
+        tr._track_frame, tr._track_reference_kf = frame, fallback
+    return hooks
+
+
 @pytest.fixture(scope="module")
 def runs():
     box = {}
-    out = {"jax": closed_loop_run("jax", hooks=_record_correction(box)),
-           "torch": closed_loop_run("torch")}
+
+    def jax_hooks(slam):
+        _record_correction(box)(slam)
+        _record_fallbacks(box, "jax_fallbacks")(slam)
+
+    with jax_velocity_from_previous_frame():
+        jax_run = closed_loop_run("jax", hooks=jax_hooks)
+    out = {"jax": jax_run, "torch": closed_loop_run("torch", hooks=_record_fallbacks(box, "torch_fallbacks"))}
     return out, box
 
 
@@ -147,3 +178,14 @@ def test_correct_loop_replay(runs):
     assert moved.max() > 1e-3  # the correction moved the map
     assert dc.max() < 1e-4, dc.max()
     np.testing.assert_allclose(tm.kf_R[ids], after["kf_R"][ids], rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("pkg", ["jax", "torch"])
+def test_motion_model_tracks_after_a_fallback(runs, pkg):
+    """ROADMAP C9, repaired in the port (and patched into the JAX tracker
+    here): once a frame has fallen back to the reference keyframe, the next
+    frame tracks by the motion model, so fallbacks stay rare on the
+    outward ring."""
+    fell = runs[1][f"{pkg}_fallbacks"]
+    after = [fell[i + 1] for i in range(len(fell) - 1) if fell[i]]
+    assert after and not any(after), (sum(fell), after)

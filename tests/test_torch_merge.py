@@ -6,13 +6,16 @@ the sub-map back (or the tracker relocalize into map 0). Run once per
 package, compared by outcome: both pass the JAX test's bars (>= 4
 keyframes before the kidnap, >= 2 maps after it, > 20 frames tracked on
 the way back, merged or relocalized), and both end in the same state (the
-same active map and merge count)."""
+same active map and merge count). The JAX tracker runs with the port's
+repair of the velocity after a fallback (ROADMAP C9,
+`test_torch_slam.jax_velocity_from_previous_frame`)."""
 
 import pytest
 import torch
 
 from test_loopclosing import CAM as JCAM
 from test_torch_loopclosing import features, make_slam
+from test_torch_slam import jax_velocity_from_previous_frame
 from orb_slam3_comments_ghr_tpu.frontend.types import empty_features as jempty
 from orb_slam3_comments_ghr_tpu.utils import synthetic as jsynthetic
 from orb_slam3_comments_ghr_torch.frontend.types import empty_features as tempty
@@ -47,7 +50,9 @@ def kidnap_run(pkg: str) -> dict:
 
 @pytest.fixture(scope="module")
 def runs():
-    return {pkg: kidnap_run(pkg) for pkg in ("jax", "torch")}
+    with jax_velocity_from_previous_frame():
+        jax_run = kidnap_run("jax")
+    return {"jax": jax_run, "torch": kidnap_run("torch")}
 
 
 @pytest.mark.parametrize("pkg", ["jax", "torch"])

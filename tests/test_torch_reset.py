@@ -92,7 +92,7 @@ def test_reset_restarts_the_inertial_staging():
     assert slam.mapper.t_imu_init is None and slam.mapper.t_init_accum == 0.0
     assert slam.mapper._t_accum_by_map == {} and slam.imu.queue == []
     assert not slam.imu.bias.any() and slam.tracker.velocity is None
-    assert slam.tracker.vi_prior is None and slam.kfdb.present.sum() == 0
+    assert slam.kfdb.present.sum() == 0
     assert _vi_run(slam, seq, world, range(70), imu_init) == first
     np.testing.assert_allclose(slam.map.kf_R[slam.map.kf_ids()], at_init[0], atol=1e-5)
     assert (slam.mapper.t_imu_init, slam.mapper.viba1_done, slam.mapper.viba2_done) == at_init[1:]

@@ -8,8 +8,11 @@ Bounds: the two packages draw their RANSAC sets from different generators
 and sum in another order, so the runs are compared by outcome: both track
 every frame after init, ATE < 5 cm, keyframe counts within 2, map points
 within 20 %. On one shared map, relocalization picks the same keyframe and
-lands within 1 cm / 0.5 degree of the JAX pose."""
+lands within 1 cm / 0.5 degree of the JAX pose. The JAX run's tracker
+takes its velocity after a fallback as the port does (ROADMAP C9,
+`jax_velocity_from_previous_frame`)."""
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -33,6 +36,50 @@ torch.set_num_threads(1)
 
 JCAM = jcameras.euroc_cam0()
 TCAM = tcameras.euroc_cam0()
+@contextlib.contextmanager
+def jax_velocity_from_previous_frame():
+    """The JAX tracker with the port's repair of ROADMAP C9: after the
+    reference-keyframe fallback, the constant-velocity model and the body
+    velocity are taken against the previous frame's pose, not against the
+    pose the fallback just wrote. The JAX `_track_frame` reads last_R /
+    last_t after the fallback's re-track; this puts the previous frame's
+    pose back for that read (the re-track has taken its start by then), and
+    restores the fallback's pose if the re-track then fails, as the port
+    keeps it."""
+    track_ref, track_frame = jtracker.Tracker._track_reference_kf, jtracker.Tracker._track_frame
+    track_against_points = jtracker.programs.track_against_points
+    swap = []
+
+    def fallback(self, feats):
+        entry = (self.last_R.copy(), self.last_t.copy())
+        ok = track_ref(self, feats)
+        if ok:
+            swap.append((self, entry, (self.last_R, self.last_t)))
+        return ok
+
+    def retrack(*args, **kwargs):
+        res = track_against_points(*args, **kwargs)
+        if swap:
+            trk, entry, _ = swap[-1]
+            trk.last_R, trk.last_t = entry
+        return res
+
+    def frame(self, feats, timestamp):
+        try:
+            return track_frame(self, feats, timestamp)
+        finally:
+            if swap:
+                _, entry, found = swap.pop()
+                if self.last_R is entry[0]:  # the re-track failed
+                    self.last_R, self.last_t = found
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jtracker.Tracker, "_track_reference_kf", fallback)
+        mp.setattr(jtracker.Tracker, "_track_frame", frame)
+        mp.setattr(jtracker.programs, "track_against_points", retrack)
+        yield
+
+
 TVOC = tsystem.os.path.join(tsystem.os.path.dirname(tsystem.__file__), "retrieval", "default_voc.npz")
 CFG = dict(n_features=512, local_points_cap=2048, local_ba_points=2048,
            max_frames_between_kf=8, min_init_matches=60, enable_loop_closing=False)
@@ -67,7 +114,8 @@ def seq():
 
 @pytest.fixture(scope="module")
 def jax_seq():
-    return run("jax")
+    with jax_velocity_from_previous_frame():
+        return run("jax")
 
 
 def test_initializes_and_tracks(seq):
@@ -227,7 +275,6 @@ def test_parts_run_on_the_card_unless_told_otherwise(monkeypatch, part):
 
 
 @pytest.mark.parametrize("change", [
-    {"enable_loop_closing": True, "sensor": tconfig.IMU_MONOCULAR},  # ROADMAP A6.3
     {"async_mapping": True},
     {"dba_devices": 2},  # ROADMAP A8
 ])
@@ -235,6 +282,24 @@ def test_unported_options_raise(change):
     cfg = dataclasses.replace(tconfig.SlamConfig(enable_loop_closing=False), **change)
     with pytest.raises(NotImplementedError):
         tsystem.SLAM(TCAM, cfg, device="cpu")
+
+
+@pytest.mark.parametrize("sensor", [tconfig.IMU_MONOCULAR, tconfig.IMU_STEREO])
+def test_inertial_sensor_with_loop_closing_tracks(sensor):
+    """An inertial sensor with loop closing on (the default SlamConfig)
+    builds and tracks: the inertial loop closer is ported (ROADMAP A6.3)."""
+    cfg = tconfig.SlamConfig(sensor=sensor, n_features=512)
+    assert cfg.enable_loop_closing
+    slam = tsystem.SLAM(TCAM, cfg, device="cpu")
+    world = tsynthetic.make_world(3, n_points=3000)
+    R, t = tsynthetic.circular_trajectory(40)[0]
+    feats, _ = tsynthetic.render_features(world, TCAM, R, t, n_feat=512, seed=3000,
+                                          stereo=sensor == tconfig.IMU_STEREO, device="cpu")
+    slam.feed_imu(np.array([[0.0, 0.0, 0.0, 9.81, 0.0, 0.0, 0.0]]))
+    slam.track_features(feats, 0.0)
+    if sensor == tconfig.IMU_STEREO:  # depth-seeded: a map from the first frame
+        assert slam.state == "OK" and slam.n_keyframes() == 1
+    assert slam.loopcloser.mapper is slam.mapper
 
 
 def test_unported_entry_points_raise(tmp_path):

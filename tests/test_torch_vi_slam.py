@@ -21,8 +21,11 @@ Bounds: runs are compared by outcome (float32 LMs summing in another order
 than XLA): the IMU initialized at the same keyframe time, the same tracked
 count, keyframes within 1, metric ATE (no scale fit) under the twin's 8 cm
 in both and within 5 mm of each other. The replayed calls: `_vi_refine`
-gives the same inlier verdict and pose within 1e-5 (its state does not move
-in either package: the NaN fault of `pose_inertial_optimize`, see
+runs through the port twice, on the JAX run's padded local map and on its
+matched rows alone, and the two give the same pose within 1e-5 and the
+same bias within 1e-6: the rows of weight 0 add nothing (ROADMAP C1,
+repaired in the port only; the JAX call does not move off its input,
+within the 1e-6 of its body-frame round trip, see
 `tests/test_torch_inertial.py`); `maybe_initialize_imu` the same scale to
 1e-4 relative, keyframe centres within 2 mm, velocities within 1 cm/s,
 biases within 1e-3 and the same staging flags; the cull the same kept
@@ -125,13 +128,11 @@ def _recorders(box: dict):
                 res={k: np.asarray(v) for k, v in res._asdict().items()}, ids=np.asarray(ids),
                 timestamp=timestamp, last_R=tr.last_R.copy(), last_t=tr.last_t.copy(),
                 body_vel=np.asarray(tr.body_vel).copy(), last_kf=tr.last_kf,
-                last_kf_time=tr.last_kf_time, bias=np.asarray(tr.imu.bias).copy(), pre=_np(pre),
-                prior=None if tr.vi_prior is None else _np(tr.vi_prior))
+                last_kf_time=tr.last_kf_time, bias=np.asarray(tr.imu.bias).copy(), pre=_np(pre))
             vi_refine(feats, res, ids, timestamp)
             box["vi_refine_out"] = dict(last_R=np.asarray(tr.last_R).copy(),
                                         last_t=np.asarray(tr.last_t).copy(),
-                                        bias=np.asarray(tr.imu.bias).copy(),
-                                        prior=None if tr.vi_prior is None else _np(tr.vi_prior))
+                                        bias=np.asarray(tr.imu.bias).copy())
 
         def rec_init(kf):
             m = slam.map
@@ -180,9 +181,10 @@ def _port_mapper(snap_map, preint, bias, cfg=None):
     return mp
 
 
-def test_vi_refine_replayed(stereo_runs):
-    box = stereo_runs[2]
-    inp, out = box["vi_refine_in"], box["vi_refine_out"]
+def _replay_vi_refine(inp, rows=None):
+    """The port's tracker after `_vi_refine` on the recorded inputs; with
+    `rows`, on those rows of the local map and of the tracking result
+    only."""
     m = convert.map_state_from_numpy(inp["map"])
     imu = tfront.ImuFrontend(TCAL, device="cpu")
     imu.bias = inp["bias"].copy()
@@ -192,18 +194,31 @@ def test_vi_refine_replayed(stereo_runs):
     tr = ttracker.Tracker(TCAM, tconfig.SlamConfig(**CFG), m, imu=imu, device="cpu")
     tr.last_R, tr.last_t = inp["last_R"], inp["last_t"]
     tr.body_vel, tr.last_kf, tr.last_kf_time = inp["body_vel"], inp["last_kf"], inp["last_kf_time"]
-    if inp["prior"] is not None:
-        tr.vi_prior = convert.vi_prior_from_numpy(inp["prior"], device="cpu")
     res = tprograms.TrackResult(**{k: (int(v) if k == "n_inliers" else v)
                                    for k, v in inp["res"].items()})
     lp = convert.local_points_from_map(m, inp["ids"], CFG["local_points_cap"], device="cpu")
+    if rows is not None:
+        res = res._replace(match_feat=res.match_feat[rows], inlier=res.inlier[rows],
+                           visible=res.visible[rows])
+        lp = tprograms.LocalPoints(*(a[torch.from_numpy(rows)] for a in lp))
     tr._vi_refine(convert.features_from_numpy(inp["feats"], device="cpu"), res, lp,
                   inp["timestamp"])
-    # the same verdict: the state accepted (a prior set) or not, in both
-    assert (tr.vi_prior is None) == (out["prior"] is None)
-    np.testing.assert_allclose(tr.last_R, out["last_R"], rtol=0, atol=1e-5)
-    np.testing.assert_allclose(tr.last_t, out["last_t"], rtol=0, atol=1e-5)
-    np.testing.assert_array_equal(imu.bias, out["bias"])
+    return tr
+
+
+def test_vi_refine_replayed(stereo_runs):
+    box = stereo_runs[2]
+    inp, out = box["vi_refine_in"], box["vi_refine_out"]
+    # the JAX call keeps its input pose (ROADMAP C1)
+    np.testing.assert_allclose(out["last_t"], inp["last_t"], rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(out["bias"], inp["bias"])
+    matched = inp["res"]["inlier"] & (inp["res"]["match_feat"] >= 0)
+    assert 0 < matched.sum() < len(matched)
+    full, kept = _replay_vi_refine(inp), _replay_vi_refine(inp, np.nonzero(matched)[0])
+    assert np.abs(full.last_t - inp["last_t"]).max() > 1e-4  # the refinement moved the pose
+    np.testing.assert_allclose(full.last_R, kept.last_R, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(full.last_t, kept.last_t, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(full.imu.bias, kept.imu.bias, rtol=0, atol=1e-6)
 
 
 def test_maybe_initialize_imu_replayed(stereo_runs):
@@ -289,11 +304,13 @@ def test_apply_world_transform_against_jax():
     for tr in (tt, jt):
         tr.last_R, tr.last_t = R_cw.copy(), np.array([0.3, -0.2, 1.0], np.float32)
         tr.body_vel = np.array([0.1, 0.2, -0.3], np.float32)
-        tr.velocity, tr.vi_prior = np.eye(4), "stale"
+        tr.velocity = np.eye(4)
+    jt.vi_prior = "stale"  # the port chains no VI prior (ROADMAP C1)
+    for tr in (tt, jt):
         tr.apply_world_transform(1.7, R, np.array([0.5, 0.0, -1.0], np.float32))
     for k in ("last_R", "last_t", "body_vel"):
         np.testing.assert_array_equal(getattr(tt, k), getattr(jt, k), err_msg=k)
-    assert tt.velocity is None and tt.vi_prior is None and tt._last_prediction is None
+    assert tt.velocity is None and tt._last_prediction is None and jt.vi_prior is None
 
 
 @pytest.mark.parametrize("sensor", [tconfig.IMU_MONOCULAR, tconfig.IMU_STEREO, tconfig.IMU_RGBD])
