@@ -1,6 +1,7 @@
 """Run the PyTorch port on a CUDA card: the window-match kernel against
 its plain version, the per-frame tracking program, monocular, stereo,
-RGB-D and visual-inertial SLAM end to end, and loop closing.
+RGB-D and visual-inertial SLAM end to end, loop closing, and the fisheye
+camera.
 
     python3 chip_smoke.py [--save-caller-inputs FILE]
 
@@ -54,7 +55,15 @@ loop-closing keyframe, its host syncs and the inertial BA's device
 profile; (b) the mono-inertial kidnap of tests/test_inertial_merge.py,
 whose yaw-only weld ends in `mapper.merge_inertial_ba`, to that test's four
 bars; (c) `full_inertial_ba` on (a)'s final map, dense and then past the
-dense cap over every point by the point-chunked solver. Phases 4-11 each count the window match's
+dense cap over every point by the point-chunked solver, with the share of
+that map's observations that fail the chi2 gate and its VI-BA cost. Phase 12
+runs the fisheye (KB8) camera: (a) `track_monocular` with TUM-VI's 512x512
+cam0 over a circle rendered in the room through the KB8 model, with one
+frame's undistortion and pose held against the CPU port; (b) the
+non-rectified KB8 pair of tests/test_fisheye_stereo.py through
+`track_stereo_fisheye` from rendered images (right-camera rows in the map
+and in both BAs); (c) the same rig with the IMU rows of `vi_sequence(150)`
+at phase 7's configuration. Phases 4-12 each count the window match's
 launches from 0 (the loop closer's projection counts and fuses apart from
 the mapper's fuse) and record its arguments on one call of each caller;
 after them, phase 1 holds the kernel against the plain version on those calls
@@ -72,6 +81,7 @@ import argparse
 import collections
 import copy
 import json
+import os
 import subprocess
 import sys
 import time
@@ -2095,11 +2105,13 @@ def phase11_full_inertial_ba(snap, device):
     rejected. Fails unless the chunked solver sees P >= the chain's point
     count, no solver call raises its cost, and the keyframe ATE ends <=
     max(1.2 x its start, 0.3 m). Returns host ms, device ms, kernels, peak
-    memory, costs and ATEs per path."""
+    memory, costs and ATEs per path, and the final map's failing
+    observations and cost."""
     import dataclasses
 
     from orb_slam3_comments_ghr_torch.ops import cameras
     from orb_slam3_comments_ghr_torch.optim import vi_ba
+    from orb_slam3_comments_ghr_torch.pipeline.mapper import VI_CHUNK
 
     cam = cameras.euroc_cam0()
     cfg, gt = snap["cfg"], snap["gt"]
@@ -2107,6 +2119,17 @@ def phase11_full_inertial_ba(snap, device):
     m = mapper.map
     chain = mapper._temporal_chain(int(m.kf_ids()[-1]), cap=256)
     all_pts = m.local_point_ids(chain, None)
+    # the map's observations that fail the chi2 gate (ROADMAP C10: the
+    # VI-BAs erase theirs since its repair) and its VI-BA cost
+    prob, _ = mapper._vi_ba_problem(chain, all_pts, -(-len(all_pts) // VI_CHUNK) * VI_CHUNK)
+    state = (prob.Rwb, prob.pwb, prob.vel, prob.bias, prob.p)
+    n_obs = int(prob.obs_valid.sum())
+    n_out = n_obs - int(vi_ba.classify_observations(cam, prob, *state[:2], prob.p,
+                                                     point_chunk=VI_CHUNK).sum())
+    cost = _vi_cost64(cam, prob, state)
+    del prob, state
+    print(f"phase11 (c) run (a)'s final map: {n_out} of {n_obs} observations of the chain's "
+          f"{len(all_pts)} points fail the chi2 gate; VI-BA cost (float64) {cost:.1f}")
     dense_cap = 4 * cfg.local_ba_points
     small = dataclasses.replace(cfg, local_ba_points=max(16, len(all_pts) // 32))
     solvers = {name: getattr(vi_ba, name) for name in ("vi_bundle_adjust",
@@ -2165,7 +2188,313 @@ def phase11_full_inertial_ba(snap, device):
     if not (out["chunked"]["chunked_P"] or 0) >= len(all_pts):
         raise AssertionError(f"phase11 (c): the chunked solver saw P {out['chunked']['chunked_P']} "
                              f"< {len(all_pts)} points of the chain")
+    out["final_map"] = dict(observations=n_obs, failing_gate=n_out, vi_ba_cost=cost)
     return out
+
+
+PHASE12_MONO_FRAMES = 120
+PHASE12_STEREO_FRAMES = 80
+PHASE12_VI_FRAMES = 150
+# the calls of phase 12 (a) whose window-match arguments are kept for phase
+# 1: the 60th tracking call and the last fuse of the mapper
+RECORD_AT_FISHEYE = {"tracking": 60, "fuse": None}
+CHECK_FRAME_FISHEYE = 60  # the frame of (a) held on the card against the CPU port
+# metres of room wall per texture in run (a): at TUM-VI's 190 px focal length
+# the 20 m of phase 10 (c) puts its 4-8 cm texture cells near a pixel at the
+# walls' 3-4 m, and the aliased frames give ~40 matches between consecutive
+# frames, under the 100 that the monocular init needs
+PHASE12_ROOM_SPAN = 80.0
+
+
+def tum_vi_cam0():
+    """TUM-VI's 512x512 KB8 cam0 (the JAX package's models/presets.py
+    `tum_vi`)."""
+    from orb_slam3_comments_ghr_torch.ops import cameras
+
+    return cameras.Camera(kind=cameras.KANNALA_BRANDT8, fx=190.978477, fy=190.973307,
+                          cx=254.931706, cy=256.897442, k1=0.003482389402, k2=0.000715034845,
+                          k3=-0.002053236141, k4=0.000202936736, width=512, height=512, fps=20.0)
+
+
+def fisheye_pair():
+    """The non-rectified KB8 pair of tests/test_fisheye_stereo.py (752x480,
+    an 11 cm baseline; the left camera's bf = fx * baseline for the depth
+    threshold) and its extrinsics x_l = R_lr x_r + t_lr."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
+    from vi_slam_cpu import fisheye_pair as pair
+    from orb_slam3_comments_ghr_torch.ops import cameras, lie
+
+    return pair(cameras, lambda w: lie.so3_exp(torch.from_numpy(w)).numpy())
+
+
+def fisheye_undistortion_against_cpu(cam, args, kwargs) -> dict:
+    """One kept `extract_and_track(undistort=True)` call again on the card
+    and through the port on the CPU: the undistorted keypoints (equal to
+    1e-3 px plus 1e-5 of their distance from the centre, on >= 95 % of the
+    slots; all finite) and the tracked pose (within 1e-3) must agree."""
+    from orb_slam3_comments_ghr_torch.pipeline import programs
+
+    cpu = torch.device("cpu")
+    on_cpu = lambda a: type(a)(*(x.to(cpu) for x in a)) if isinstance(a, tuple) else (
+        a.to(cpu) if torch.is_tensor(a) else a)
+    f_g, r_g = programs.extract_and_track(*args, **kwargs)
+    f_c, r_c = programs.extract_and_track(*map(on_cpu, args), **kwargs)
+    xy_g, xy_c = f_g.xy.cpu(), f_c.xy
+    centre = torch.tensor([cam.cx, cam.cy])
+    near = ((xy_g - xy_c).abs().amax(-1) <= 1e-3 + 1e-5 * (xy_c - centre).norm(dim=-1))
+    share = float(near.float().mean())
+    finite = bool(torch.isfinite(xy_g).all())
+    dR = float((r_g.R.cpu() - r_c.R).abs().max())
+    dt = float((r_g.t.cpu() - r_c.t).abs().max())
+    print(f"phase12 (a) frame {CHECK_FRAME_FISHEYE} card vs cpu: undistorted keypoints equal on "
+          f"{share:.4f} of the slots, all finite {finite}, |dR| {dR:.2e}, |dt| {dt:.2e} m, inliers "
+          f"{int(r_g.n_inliers)} vs {int(r_c.n_inliers)}")
+    if share < 0.95 or not finite or dR > 1e-3 or dt > 1e-3:
+        raise AssertionError("phase12 (a): the card's undistortion or pose disagrees with the CPU port")
+    return dict(keypoint_share=share, dR=dR, dt_m=dt)
+
+
+def phase12_mono_fisheye(wm_mod, device):
+    """Run (a): `SLAM.track_monocular` with TUM-VI's KB8 cam0 (512x512) and
+    its preset (1024 features, a keyframe at least every 20 frames, the
+    default SlamConfig otherwise: loop closing on) over PHASE12_MONO_FRAMES
+    frames of `circular_trajectory`, rendered in room scene 33 built around
+    their centres (with PHASE12_ROOM_SPAN m of wall per texture) through the
+    KB8 model (rays from its exact inverse; beyond 90 degrees the 40-grey
+    background). Fails unless the map
+    initializes, >= 90 % of the frames after the init are tracked, >= 3
+    keyframes, the Sim(3)-aligned ATE of `trajectory()` < 6 cm
+    (tests/test_fisheye.py), and the window match launched once per matcher
+    call; then one frame's undistortion and pose against the CPU port.
+    Returns (launches, calls, recorded arguments, results)."""
+    from orb_slam3_comments_ghr_torch.ops import cameras
+    from orb_slam3_comments_ghr_torch.pipeline import programs
+    from orb_slam3_comments_ghr_torch.system import SLAM
+    from orb_slam3_comments_ghr_torch.utils import config, evaluation, gt_replay, synthetic
+
+    cam = tum_vi_cam0()
+    n = PHASE12_MONO_FRAMES
+    poses = synthetic.circular_trajectory(n)
+    scene = gt_replay.make_room_scene(33, np.stack([camera_centre(R, t) for R, t in poses]),
+                                      margin=4.0, span=PHASE12_ROOM_SPAN)
+    t0 = time.perf_counter()
+    frames = render_all(lambda R, t: np.clip(np.round(gt_replay.render_room(scene, cam, R, t)),
+                                             0, 255).astype(np.uint8), poses)
+    print(f"phase12 (a) rendered {n} 512x512 KB8 frames in {time.perf_counter() - t0:.1f} s")
+    slam = SLAM(cam, config.SlamConfig(n_features=1024, max_frames_between_kf=20), device=device)
+    calls = {"tracking": 0, "init": 0, "fuse": 0, "loop_count": 0, "loop_fuse": 0}
+    recorded, kept = {}, {}
+    restore = _count_loop_matchers(wm_mod, slam, calls, recorded, RECORD_AT_FISHEYE, "fisheye ")
+    extract_and_track = _keep_call(programs, "extract_and_track", kept, "frame",
+                                   lambda i, b: i == CHECK_FRAME_FISHEYE + 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wm_mod.launches = 0
+    try:
+        est, frame_ms, init_frame = [], [], None
+        for i, img in enumerate(frames):
+            box = {}
+            ms = host_ms(lambda: box.update(pose=slam.track_monocular(img, i * 0.05)))
+            if box["pose"] is not None:
+                if not np.isfinite(box["pose"]).all():
+                    raise AssertionError(f"phase12 (a) frame {i}: non-finite pose")
+                init_frame = i if init_frame is None else init_frame
+                est.append((i * 0.05, box["pose"]))
+                if i > init_frame and slam.tracker.pending_kf is None:
+                    frame_ms.append(ms)
+        torch.cuda.synchronize()
+        launches = wm_mod.launches
+    finally:
+        restore()
+        programs.extract_and_track = extract_and_track
+    peak = torch.cuda.max_memory_allocated()
+    ate = evaluation.ate_rmse(slam.trajectory(), synthetic.gt_trajectory(poses), with_scale=True)
+    after = n - (init_frame if init_frame is not None else n)
+    print(f"phase12 (a) mono KB8 {n} frames: initialized at frame {init_frame}, tracked "
+          f"{len(est)}/{n}, keyframes {slam.n_keyframes()}, map points {slam.n_map_points()}, maps "
+          f"{slam.map.n_maps}, loops {slam.loopcloser.n_loops}, Sim(3)-aligned ATE of trajectory() "
+          f"{ate * 1e3:.3f} mm, max_memory_allocated {peak / 2**20:.1f} MiB; track_monocular host "
+          f"ms on {len(frame_ms)} frames without a keyframe (median / p75): "
+          + (f"{np.median(frame_ms):.3f} / {np.percentile(frame_ms, 75):.3f}" if frame_ms else "none"))
+    _check_launches("phase12 (a)", launches, calls)
+    if init_frame is None or len(est) < 0.9 * after or slam.n_keyframes() < 3 or not ate < 0.06:
+        raise AssertionError(f"phase12 (a): initialized at {init_frame}, tracked {len(est)} of the "
+                             f"{after} frames from the init, {slam.n_keyframes()} keyframes, ATE "
+                             f"{ate:.4f} m (bars: >= 90 %, >= 3, < 6 cm)")
+    if set(RECORD_AT_FISHEYE) - {k[len("fisheye "):] for k in recorded} or "frame" not in kept:
+        raise AssertionError("phase12 (a): a caller recorded no call")
+    check = fisheye_undistortion_against_cpu(cam, *kept["frame"])
+    return launches, calls, recorded, dict(
+        init_frame=init_frame, tracked=len(est), keyframes=slam.n_keyframes(),
+        points=slam.n_map_points(), loops=slam.loopcloser.n_loops, ate_sim3_m=ate,
+        peak_mib=peak / 2**20, card_vs_cpu=check,
+        frame_ms={"median": float(np.median(frame_ms)) if frame_ms else None,
+                  "p75": float(np.percentile(frame_ms, 75)) if frame_ms else None})
+
+
+def fisheye_stereo_inputs(n: int):
+    """Both views of `fisheye_pair()` along `vi_sequence(n)`'s poses,
+    rendered through their KB8 models in room scene 33 built around the
+    left camera's centres, with the IMU rows per frame: (left, right,
+    rows, timestamps, poses)."""
+    from orb_slam3_comments_ghr_torch.utils import gt_replay, synthetic
+
+    cam_l, cam_r, R_lr, t_lr = fisheye_pair()
+    R_rl, t_rl = R_lr.T, -R_lr.T @ t_lr
+    poses, imu_rows, times = synthetic.vi_sequence(n)
+    room = gt_replay.make_room_scene(33, np.stack([camera_centre(R, t) for R, t in poses]),
+                                     margin=4.0, span=20.0)
+    u8 = lambda img: np.clip(np.round(img), 0, 255).astype(np.uint8)
+    left = render_all(lambda R, t: u8(gt_replay.render_room(room, cam_l, R, t)), poses)
+    right = render_all(lambda R, t: u8(gt_replay.render_room(
+        room, cam_r, (R_rl @ R).astype(np.float32), (R_rl @ t + t_rl).astype(np.float32))), poses)
+    rows = [imu_rows[(imu_rows[:, 0] > (times[i - 1] if i else -1.0)) & (imu_rows[:, 0] <= times[i])]
+            for i in range(n)]
+    return left, right, rows, times, poses
+
+
+def _right_rows(prob, D: int) -> int:
+    """Valid right-camera rows (obs_rig = 1, columns >= D) of a BA problem."""
+    if prob.obs_rig is None:
+        return 0
+    return int((prob.obs_valid[:, D:] & (prob.obs_rig[:, D:] == 1)).sum())
+
+
+def _rig_ba_cost(tag: str, solve, kept, D: int) -> dict:
+    """A kept local (VI-)BA call with right-camera rows again on its inputs:
+    host ms, device ms, kernels and peak memory above what was allocated,
+    with its 2D-wide rig tables and with the right rows taken out (D wide,
+    no rig)."""
+    cam, prob, args, kwargs = kept
+    left = prob._replace(obs_rig=None, rig_R=None, rig_t=None, **{
+        k: getattr(prob, k)[:, :D] for k in ("obs_cam", "obs_uv", "obs_ur", "obs_level",
+                                              "obs_valid")})
+    out = {}
+    for key, p in (("with right rows", prob), ("left rows only", left)):
+        run = lambda: solve(cam, p, *args, **kwargs)
+        out[key] = stage_times(f"{tag} {solve.__name__} {key} ({p.obs_cam.shape[0]} x "
+                               f"{p.obs_cam.shape[1]} table)", run, calls=5)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        run()
+        torch.cuda.synchronize()
+        out[key]["peak_mib"] = (torch.cuda.max_memory_allocated() - base) / 2**20
+        print(f"  {tag} {key}: peak {out[key]['peak_mib']:.1f} MiB above the inputs")
+    return out
+
+
+def phase12_stereo_fisheye(wm_mod, device, inputs, inertial: bool):
+    """Run (b) (`inertial` False): `SLAM.track_stereo_fisheye` on rendered
+    images of both cameras of the KB8 pair (features extracted by the entry
+    point), sensor STEREO with the default widths, over the first
+    PHASE12_STEREO_FRAMES frames of `inputs`; fails unless the map holds the
+    rig and > 50 right-camera rows, > 30 frames are tracked, the metric ATE
+    of `trajectory()` is < 10 cm (tests/test_fisheye_stereo.py), the BA
+    tables of the map carry > 50 valid right rows with obs_rig = 1, and the
+    last local BA's problem carried > 50 of them. Run (c) (`inertial`):
+    the same rig with the IMU rows over all PHASE12_VI_FRAMES frames, at
+    phase 7's configuration (loop closing off); fails unless the IMU
+    initializes, >= 95 % of the frames are tracked, the metric ATE is < 8
+    cm, and inertial local BAs ran with right rows. Both: the window match
+    launched once per matcher call; then the last local BA with right rows
+    again on its inputs, with and without them (`_rig_ba_cost`). Returns
+    (launches, calls, results)."""
+    from orb_slam3_comments_ghr_torch.optim import ba, vi_ba
+    from orb_slam3_comments_ghr_torch.pipeline.mapper import _build_obs_tables
+    from orb_slam3_comments_ghr_torch.system import SLAM
+    from orb_slam3_comments_ghr_torch.utils import config, evaluation
+
+    tag = "phase12 (c)" if inertial else "phase12 (b)"
+    left, right, rows, times, poses = inputs
+    n = PHASE12_VI_FRAMES if inertial else PHASE12_STEREO_FRAMES
+    cam_l, cam_r, R_lr, t_lr = fisheye_pair()
+    if inertial:
+        cfg = config.SlamConfig(sensor=config.IMU_STEREO, n_features=1024, local_points_cap=4096,
+                                local_ba_points=2048, max_frames_between_kf=10,
+                                min_init_matches=60, enable_loop_closing=False)
+        slam = SLAM(cam_l, cfg, imu_calib=imu_calib(), device=device)
+    else:
+        slam = SLAM(cam_l, config.SlamConfig(sensor=config.STEREO), device=device)
+    D = slam.cfg.obs_cap
+    calls = {"tracking": 0, "init": 0, "fuse": 0, "loop_count": 0, "loop_fuse": 0}
+    restore = _count_loop_matchers(wm_mod, slam, calls, {}, {})
+    solver_mod, solver = (vi_ba, "vi_bundle_adjust") if inertial else (ba, "bundle_adjust")
+    solve = getattr(solver_mod, solver)
+    right_rows, kept = [], []  # valid right rows of each local (VI-)BA problem
+
+    def counted(cam, prob, *args, **kwargs):
+        right_rows.append(_right_rows(prob, D))
+        if right_rows[-1]:
+            kept[:] = [(cam, prob, args, kwargs)]
+        return solve(cam, prob, *args, **kwargs)
+
+    setattr(solver_mod, solver, counted)
+    imu_ready = lambda: slam.map.map_imu_init.get(slam.map.active_map, False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wm_mod.launches = 0
+    try:
+        est, frame_ms, imu_frame = [], [], None
+        for i in range(n):
+            box = {}
+            kfs = slam.map.n_kf
+            ms = host_ms(lambda: box.update(pose=slam.track_stereo_fisheye(
+                left[i], right[i], cam_r, R_lr, t_lr, times[i],
+                imu_samples=rows[i] if inertial else None)))
+            if box["pose"] is not None:
+                if not np.isfinite(box["pose"]).all():
+                    raise AssertionError(f"{tag} frame {i}: non-finite pose")
+                est.append((times[i], box["pose"]))
+                if i > 0 and slam.map.n_kf == kfs:
+                    frame_ms.append(ms)
+            if imu_frame is None and imu_ready():
+                imu_frame = i
+        torch.cuda.synchronize()
+        launches = wm_mod.launches
+    finally:
+        restore()
+        setattr(solver_mod, solver, solve)
+    peak = torch.cuda.max_memory_allocated()
+    m = slam.map
+    ate = evaluation.ate_rmse(slam.trajectory(), vi_gt(poses[:n], times[:n]), with_scale=False)
+    n_right = int((m.mp_obs_r_level >= 0).sum())
+    kfs = [int(k) for k in m.kf_ids()]
+    pts = m.local_point_ids(kfs, None)
+    tabs = _build_obs_tables(m, pts, {c: i for i, c in enumerate(kfs)}, len(pts))
+    table_rows = int(tabs[4][:, D:].sum()) if m.rig is not None else 0
+    rig_ok = m.rig is not None and bool((tabs[5][:, D:] == 1).all())
+    print(f"{tag} KB8 {'stereo-inertial' if inertial else 'stereo'} {n} frames: tracked "
+          f"{len(est)}/{n}" + (f", IMU initialized at frame {imu_frame}" if inertial else "")
+          + f", keyframes {slam.n_keyframes()}, map points {slam.n_map_points()}, right-camera rows "
+          f"{n_right} in the map, {table_rows} in the BA tables, metric ATE of trajectory() "
+          f"{ate * 1e3:.3f} mm, max_memory_allocated {peak / 2**20:.1f} MiB; {solver} calls "
+          f"{len(right_rows)}, right rows in the last {right_rows[-1] if right_rows else None}; "
+          f"track_stereo_fisheye host ms on {len(frame_ms)} frames without a keyframe "
+          "(median / p75): " + (f"{np.median(frame_ms):.3f} / {np.percentile(frame_ms, 75):.3f}"
+                                if frame_ms else "none"))
+    _check_launches(tag, launches, calls)
+    if inertial:
+        viba_rows = [r for r in right_rows if r > 0]
+        if imu_frame is None or len(est) < 0.95 * n or not ate < 0.08 or not viba_rows:
+            raise AssertionError(f"{tag}: IMU initialized at {imu_frame}, tracked {len(est)} of "
+                                 f"{n}, ATE {ate:.4f} m, inertial local BAs with right rows "
+                                 f"{len(viba_rows)} (bars: initialized, >= 95 %, < 8 cm, >= 1)")
+    elif (not rig_ok or n_right <= 50 or len(est) <= 30 or not ate < 0.10 or table_rows <= 50
+          or not right_rows or right_rows[-1] <= 50):
+        raise AssertionError(f"{tag}: rig {rig_ok}, {n_right} right rows, tracked {len(est)}, ATE "
+                             f"{ate:.4f} m, {table_rows} rows in the tables, last local BA "
+                             f"{right_rows[-1] if right_rows else None} (bars: > 50, > 30, < 10 cm, "
+                             "> 50, > 50)")
+    rig_ba = _rig_ba_cost(tag, solve, kept[0], D)
+    return launches, calls, dict(
+        rig_ba=rig_ba, tracked=len(est), imu_init_frame=imu_frame, keyframes=slam.n_keyframes(),
+        points=slam.n_map_points(), right_rows_map=n_right, right_rows_tables=table_rows,
+        ba_calls=len(right_rows), ba_calls_with_right_rows=sum(r > 0 for r in right_rows),
+        right_rows_last_ba=right_rows[-1] if right_rows else None, ate_metric_m=ate,
+        peak_mib=peak / 2**20,
+        frame_ms={"median": float(np.median(frame_ms)) if frame_ms else None,
+                  "p75": float(np.percentile(frame_ms, 75)) if frame_ms else None})
 
 
 def main(argv=None) -> int:
@@ -2264,6 +2593,19 @@ def main(argv=None) -> int:
     loop["full_inertial_ba"] = phase11_full_inertial_ba(snap, device)
     del snap
     print(f"phase11 passed in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    fisheye = {}
+    n, calls, rec, fisheye["mono"] = phase12_mono_fisheye(window_match, device)
+    paths["mono fisheye"] = dict(calls, launches=n)
+    recorded.update(rec)
+    t1 = time.perf_counter()
+    inputs = fisheye_stereo_inputs(PHASE12_VI_FRAMES)
+    print(f"phase12 rendered {PHASE12_VI_FRAMES} KB8 stereo pairs in {time.perf_counter() - t1:.1f} s")
+    for key, inertial in (("stereo fisheye", False), ("stereo-inertial fisheye", True)):
+        n, calls, fisheye[key] = phase12_stereo_fisheye(window_match, device, inputs, inertial)
+        paths[key] = dict(calls, launches=n)
+    del inputs
+    print(f"phase12 passed in {time.perf_counter() - t0:.1f} s")
     if opts.save_caller_inputs:
         torch.save({k: tuple(a.cpu() for a in v) for k, v in recorded.items()},
                    opts.save_caller_inputs)
@@ -2272,7 +2614,8 @@ def main(argv=None) -> int:
                                                  for c in RECORD_AT_DEPTH),
                                    *(f"stereo-inertial {c}" for c in RECORD_AT_VI),
                                    *RECORD_AT_LOOP,
-                                   *(f"inertial {c}" for c in RECORD_AT_INERTIAL_LOOP)])
+                                   *(f"inertial {c}" for c in RECORD_AT_INERTIAL_LOOP),
+                                   *(f"fisheye {c}" for c in RECORD_AT_FISHEYE)])
     max_err = max(max_err, err)
     print("phase1 on the recorded caller inputs passed")
 
@@ -2282,11 +2625,12 @@ def main(argv=None) -> int:
         "name": "window_match", "route": "cuda",
         "source": "orb_slam3_comments_ghr_torch/csrc/window_match.cu",
         "replaces": "orb_slam3_comments_ghr_tpu/ops/pallas_match.py:88",
-        # launches over the main runs of phases 4-11, each counted from 0
+        # launches over the main runs of phases 4-12, each counted from 0
         "launches": sum(paths[p]["launches"] for p in (
             "mono", "stereo", "rgbd", "stereo-inertial", "rgbd-inertial", "mono-inertial",
             "feature loop", "kidnap and merge", "image loop", "stereo-inertial loop",
-            "inertial kidnap and merge")),
+            "inertial kidnap and merge", "mono fisheye", "stereo fisheye",
+            "stereo-inertial fisheye")),
         "max_abs_err": max_err,
         # device time per launch on the recorded mono tracking call (CUDA graph)
         "ms": track["device_ms"], "plain_ms": track["plain_ms"],
@@ -2294,7 +2638,7 @@ def main(argv=None) -> int:
         "paths": paths, "callers": callers, "random_4096x1024_r80": synthetic_times,
     }], "plain_stages": stages, "inertial": {
         "stereo-inertial": vi_stereo, "rgbd-inertial": vi_rgbd, "mono-inertial": vi_mono,
-        "stages": vi_stages}, "loop_closing": loop}))
+        "stages": vi_stages}, "loop_closing": loop, "fisheye": fisheye}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

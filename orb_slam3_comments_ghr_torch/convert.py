@@ -49,7 +49,7 @@ def desc_tensor(desc: np.ndarray, device="cuda") -> torch.Tensor:
     return torch.from_numpy(np.array(desc, np.uint32).view(np.int32)).to(device)  # a writable copy
 
 
-_INT_FIELDS = ("level", "obs_cam", "obs_level", "e_i", "e_j")
+_INT_FIELDS = ("level", "obs_cam", "obs_level", "obs_rig", "e_i", "e_j")
 _BOOL_FIELDS = ("valid", "cam_fixed", "p_valid", "obs_valid", "fixed", "pre_valid", "e_valid")
 
 
@@ -90,8 +90,8 @@ def local_points_from_map(m: MapState, ids: np.ndarray, cap: int, device="cuda")
 
 def ba_problem_from_numpy(arrays: Mapping[str, np.ndarray], device="cuda") -> BAProblem:
     """A windowed BA problem from its padded arrays (the fields of the JAX
-    package's BAProblem; the rig fields are not ported)."""
-    return BAProblem(**{k: _tensor(k, arrays[k], device) for k in BAProblem._fields})
+    package's BAProblem; the rig fields may be absent or None)."""
+    return BAProblem(**_problem_fields(BAProblem, arrays, device))
 
 
 def imu_calib_from_jax(calib) -> ImuCalib:
@@ -117,10 +117,23 @@ def vi_prior_from_numpy(arrays: Mapping[str, np.ndarray], device="cuda") -> VIPr
 
 def vi_ba_problem_from_numpy(arrays: Mapping, device="cuda") -> VIBAProblem:
     """A windowed VI-BA problem from its padded arrays; `pre` is a mapping
-    of the stacked preintegrations' fields (the rig fields are not
-    ported)."""
-    fields = {k: _tensor(k, arrays[k], device) for k in VIBAProblem._fields if k != "pre"}
-    return VIBAProblem(pre=preintegrated_from_numpy(arrays["pre"], device), **fields)
+    of the stacked preintegrations' fields (the rig fields may be absent
+    or None)."""
+    return VIBAProblem(pre=preintegrated_from_numpy(arrays["pre"], device),
+                       **_problem_fields(VIBAProblem, arrays, device, skip=("pre",)))
+
+
+def _problem_fields(cls, arrays: Mapping, device, skip=()) -> dict:
+    """The fields of a BA problem class as tensors; an optional field
+    (default None) that is absent or None (also `np.asarray(None)`) stays
+    None."""
+    out = {}
+    for k in cls._fields:
+        if k in skip:
+            continue
+        a = arrays.get(k) if k in cls._field_defaults else arrays[k]
+        out[k] = None if a is None or np.asarray(a).dtype == object else _tensor(k, a, device)
+    return out
 
 
 def pose_graph_from_numpy(arrays: Mapping[str, np.ndarray], device="cuda") -> PoseGraphProblem:
@@ -136,9 +149,13 @@ def sim3_from_numpy(s, R, t, device="cuda") -> tuple:
 
 def to_numpy(container) -> dict:
     """Fields of a port NamedTuple (Features, LocalPoints, TrackResult,
-    BAProblem) as numpy arrays, descriptors viewed back as uint32."""
+    BAProblem) as numpy arrays, descriptors viewed back as uint32; a field
+    that is None (a problem's unused rig slots) stays None."""
     out = {}
     for k, v in container._asdict().items():
+        if v is None:
+            out[k] = None
+            continue
         a = v.detach().cpu().numpy()
         out[k] = a.view(np.uint32) if k == "desc" else a
     return out
@@ -146,8 +163,11 @@ def to_numpy(container) -> dict:
 
 def map_state_to_numpy(m) -> dict:
     """Every array and counter of a MapState (either package's: both are
-    host numpy) as a dict of copies; the config under "cfg"."""
+    host numpy) as a dict of copies; the config under "cfg", and the fisheye
+    rig's (R_rl, t_rl) under "rig" where the map has one."""
     out = {"cfg": dataclasses.asdict(m.cfg)}
+    if m.rig is not None:
+        out["rig"] = tuple(np.array(a, np.float32) for a in m.rig)
     for k, v in vars(m).items():
         if isinstance(v, np.ndarray):
             out[k] = v.copy()
@@ -161,6 +181,8 @@ def map_state_from_numpy(arrays: Mapping) -> MapState:
     gave."""
     m = MapState(MapConfig(**arrays["cfg"]))
     for k, v in arrays.items():
-        if k != "cfg":
+        if k == "rig":
+            m.rig = tuple(np.array(a) for a in v)
+        elif k != "cfg":
             setattr(m, k, v.copy() if isinstance(v, np.ndarray) else type(v)(v))
     return m

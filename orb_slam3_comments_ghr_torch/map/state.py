@@ -13,9 +13,10 @@ from it on demand (KeyFrame::UpdateConnections computes the same counts from
 MapPoint::GetObservations, KeyFrame.h:222).
 
 Copied from `orb_slam3_comments_ghr_tpu/map/state.py` (numpy
-only), so the port needs no JAX. It keeps that module's known fault too:
-`replace_point` drops the old point's right-camera rows, so the two
-packages' maps stay equal under the same calls.
+only), so the port needs no JAX. One deliberate divergence (ROADMAP C6):
+`replace_point` carries the old point's right-camera rows into the slots the
+new point gains, where the JAX package drops them; maps without a rig are
+unchanged by it.
 """
 
 from __future__ import annotations
@@ -367,7 +368,8 @@ class MapState:
 
     @_locked
     def replace_point(self, old: int, new: int):
-        """MapPoint::Replace — move observations of `old` into `new`."""
+        """MapPoint::Replace — move observations of `old` into `new`, each
+        with its right-camera row (fisheye rig) where it has one."""
         for s in range(self.cfg.obs_cap):
             kf = self.mp_obs_kf[old, s]
             if kf < 0:
@@ -376,7 +378,10 @@ class MapState:
             if int(self.kf_feat_mp[kf, fi]) == old:
                 self.kf_feat_mp[kf, fi] = -1
             if not (kf in self.mp_obs_kf[new]):
-                self.add_observation(new, int(kf), fi)
+                if self.add_observation(new, int(kf), fi) and self.mp_obs_r_level[old, s] >= 0:
+                    ns = np.nonzero(self.mp_obs_kf[new] == kf)[0][0]
+                    self.mp_obs_r_uv[new, ns] = self.mp_obs_r_uv[old, s]
+                    self.mp_obs_r_level[new, ns] = self.mp_obs_r_level[old, s]
         self.mp_found[new] += self.mp_found[old]
         self.mp_visible[new] += self.mp_visible[old]
         self.mp_obs_kf[old] = -1

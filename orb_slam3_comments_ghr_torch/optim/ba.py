@@ -30,6 +30,12 @@ time, and its Schur cross term by observation pairs: each point's (D, D)
 pairs of camera slots are summed by one `index_add_` into (K*K) 6x6 blocks,
 which stays proportional to the observations where the windowed path's
 (P, K) slots would grow with the whole map.
+
+A fisheye rig adds a second camera rigidly mounted on the keyframe
+(EdgeSE3ProjectXYZToBody, OptimizableTypes.h:96-160): `obs_rig` picks per
+observation a rigid offset applied after the keyframe pose (slot 0 the
+keyframe's own camera, slot 1 the right one), and the Jacobians chain
+through it. Problems without a rig leave the three rig fields None.
 """
 
 from __future__ import annotations
@@ -53,6 +59,9 @@ class BAProblem(NamedTuple):
     obs_ur: (P,D) right-u, < 0 for mono observations
     obs_level: (P,D) keypoint octave
     obs_valid: (P,D) bool
+    obs_rig: (P,D) int rig-camera slot, or None (single camera)
+    rig_R: (S,3,3) camera-0 -> rig-camera rotations (rig_R[0] = I), or None
+    rig_t: (S,3) the matching translations, or None
     """
 
     cam_R: torch.Tensor
@@ -65,6 +74,9 @@ class BAProblem(NamedTuple):
     obs_ur: torch.Tensor
     obs_level: torch.Tensor
     obs_valid: torch.Tensor
+    obs_rig: torch.Tensor | None = None
+    rig_R: torch.Tensor | None = None
+    rig_t: torch.Tensor | None = None
 
 
 FIXED_PRIOR = 1e12
@@ -76,7 +88,8 @@ def _obs_terms(cam: cameras.Camera, prob: BAProblem, R, t, p, use_huber: bool):
     (P,D,3), delta2 (P,D)."""
     oc = prob.obs_cam.long()
     Ro = R[oc]                                    # (P,D,3,3)
-    pc = (Ro @ p[:, None, :, None])[..., 0] + t[oc]
+    pc0 = (Ro @ p[:, None, :, None])[..., 0] + t[oc]  # the keyframe camera's frame
+    A, pc = _rig_chain(prob, pc0)
     z = torch.clamp_min(pc[..., 2], 1e-6)
     uv_hat = cameras.project(cam, pc)
     is_stereo = prob.obs_ur >= 0.0
@@ -90,10 +103,12 @@ def _obs_terms(cam: cameras.Camera, prob: BAProblem, R, t, p, use_huber: bool):
 
     J_proj = cameras.project_jac(cam, pc)         # (P,D,2,3)
     eye = torch.eye(3, dtype=pc.dtype, device=pc.device).expand(pc.shape[:-1] + (3, 3))
-    dpc_dxi = torch.cat([eye, -lie.hat(pc)], dim=-1)  # (P,D,3,6)
+    dpc_dxi = torch.cat([eye, -lie.hat(pc0)], dim=-1)  # (P,D,3,6)
     zero = torch.zeros_like(z)
     d_ur_dpc = J_proj[..., 0, :] + torch.stack([zero, zero, cam.bf / (z * z)], dim=-1)
     dh_dpc = torch.cat([J_proj, d_ur_dpc[..., None, :]], dim=-2)  # (P,D,3,3)
+    if A is not None:  # the perturbation acts on camera 0: dpc = A dpc0
+        dpc_dxi, Ro = A @ dpc_dxi, A @ Ro
     Jc = -(dh_dpc @ dpc_dxi)
     Jp = -(dh_dpc @ Ro)
 
@@ -103,6 +118,17 @@ def _obs_terms(cam: cameras.Camera, prob: BAProblem, R, t, p, use_huber: bool):
     w = robust.huber_weight(chi2, delta2) if use_huber else torch.ones_like(chi2)
     w = torch.where(prob.obs_valid, w * info, 0.0)
     return r, Jc, Jp, w, chi2, row_mask, delta2
+
+
+def _rig_chain(prob, pc0):
+    """(A, pc): each observation's rig rotation A (P,D,3,3) and its point
+    in the observing camera's frame, pc = A pc0 + b; (None, pc0) without a
+    rig."""
+    if prob.obs_rig is None:
+        return None, pc0
+    slot = prob.obs_rig.long()
+    A = prob.rig_R[slot]
+    return A, (A @ pc0[..., None])[..., 0] + prob.rig_t[slot]
 
 
 def _segment_sum(x: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
@@ -290,7 +316,8 @@ def point_chunks(prob, p, point_chunk: int):
         sl = slice(c0, c0 + point_chunk)
         yield prob._replace(p=p[sl], p_valid=prob.p_valid[sl], obs_cam=prob.obs_cam[sl],
                             obs_uv=prob.obs_uv[sl], obs_ur=prob.obs_ur[sl],
-                            obs_level=prob.obs_level[sl], obs_valid=prob.obs_valid[sl])
+                            obs_level=prob.obs_level[sl], obs_valid=prob.obs_valid[sl],
+                            obs_rig=None if prob.obs_rig is None else prob.obs_rig[sl])
 
 
 def bundle_adjust_resumable(cam: cameras.Camera, prob: BAProblem, lam0: torch.Tensor,

@@ -14,6 +14,13 @@ The loop closer calls the whole-map BAs (the visual `global_ba` /
 `run_full_map_ba`, the inertial `full_inertial_ba`) and the inertial weld
 (`merge_inertial_ba`) inline: there is no background thread to abort, but
 `request_abort_gba` still stops a whole-map run at its next bite.
+
+A fisheye rig (`MapState.rig`) doubles the BA tables: columns [D, 2D) hold
+the right-camera rows of the same observation slots (`obs_rig` = 1), and an
+outlier there clears only that right row. Every BA, the visual-inertial ones
+too, erases the observations that fail the chi2 gate after its solve; in
+the JAX package the VI-BA erases none (ROADMAP C10, a deliberate
+divergence).
 """
 
 from __future__ import annotations
@@ -443,13 +450,11 @@ class LocalMapper:
         cam_fixed[:n_opt] = False
         p[: len(pts)] = m.mp_pos[pts]
         p_valid[: len(pts)] = True
-        obs_cam, obs_uv, obs_ur, obs_level, obs_valid = _build_obs_tables(m, pts, cam_slot, P)
+        tables = dict(zip(_OBS_FIELDS, _build_obs_tables(m, pts, cam_slot, P)))
         prob = convert.ba_problem_from_numpy(dict(
-            cam_R=cam_R, cam_t=cam_t, cam_fixed=cam_fixed, p=p, p_valid=p_valid,
-            obs_cam=obs_cam, obs_uv=obs_uv, obs_ur=obs_ur, obs_level=obs_level,
-            obs_valid=obs_valid,
+            cam_R=cam_R, cam_t=cam_t, cam_fixed=cam_fixed, p=p, p_valid=p_valid, **tables,
         ), device=self.device)
-        return prob, cam_slot, obs_valid
+        return prob, cam_slot, tables["obs_valid"]
 
     def _write_back(self, opt_kfs, cam_slot, pts, obs_valid, Rn, tn, pn, inlier):
         """Poses of `opt_kfs` and positions of `pts` from a BA result (one
@@ -468,11 +473,22 @@ class LocalMapper:
             m.kf_R[c] = Rn[i]
             m.kf_t[c] = tn[i]
         m.mp_pos[pts] = pn[: len(pts)]
+        self._erase_outliers(pts, obs_valid, inlier)
+        m.version += 1
+
+    def _erase_outliers(self, pts, obs_valid, inlier):
+        """Erase the observations of `pts` that were valid in a BA problem
+        and failed its chi2 gate (Optimizer.cc:2100-2160 post-pass); a
+        right-camera row (column >= D of a rig table) clears only that row."""
+        m = self.map
+        D = m.cfg.obs_cap
         for j, srow in np.argwhere(obs_valid[: len(pts)] & ~inlier[: len(pts)]):
+            if srow >= D:
+                m.mp_obs_r_level[pts[j], srow - D] = -1
+                continue
             c = m.mp_obs_kf[pts[j], srow]
             if c >= 0:
                 m.remove_observation(int(pts[j]), int(c))
-        m.version += 1
 
     # ------------------------------------------------------------ global BA
     def _refuse_distributed(self):
@@ -605,9 +621,12 @@ class LocalMapper:
         pose fixed (`_vi_ba_problem`). The dense solver pads the points to a
         power of two up to `point_cap` (default local_ba_points); `chunked`
         takes the point-chunked whole-map solver, the points padded to a
-        multiple of VI_CHUNK. Writes the states and points back. The JAX
-        package's `abortable` (the keyframe-queue probe of async mapping)
-        is not ported: mapping runs inline."""
+        multiple of VI_CHUNK. Writes the states and points back, then erases
+        the observations that fail the chi2 gate at the solved state
+        (`vi_ba.classify_observations`; ROADMAP C10: the JAX package erases
+        none), all fetched in one copy. The JAX package's `abortable` (the
+        keyframe-queue probe of async mapping) is not ported: mapping runs
+        inline."""
         m = self.map
         if len(pts) < 8:
             return
@@ -615,21 +634,25 @@ class LocalMapper:
             P = max(VI_CHUNK, -(-len(pts) // VI_CHUNK) * VI_CHUNK)
         else:
             P = _pad_pow2(len(pts), 256, point_cap or self.cfg.local_ba_points)
-        prob = self._vi_ba_problem(chain, pts, P, seam)
-        if prob is None:
+        built = self._vi_ba_problem(chain, pts, P, seam)
+        if built is None:
             return
+        prob, obs_valid = built
         if chunked:
             lam0 = torch.tensor(1e-4, dtype=torch.float32, device=self.device)
             Rwb_n, pwb_n, vel_n, bias_n, p_n, _ = vi_ba.vi_bundle_adjust_chunked(
                 self.cam, prob, lam0, iters=iters, point_chunk=VI_CHUNK)
+            inlier = vi_ba.classify_observations(self.cam, prob, Rwb_n, pwb_n, p_n,
+                                                 point_chunk=VI_CHUNK)
         else:
-            Rwb_n, pwb_n, vel_n, bias_n, p_n, _, _ = vi_ba.vi_bundle_adjust(self.cam, prob,
-                                                                             iters=iters)
-        K = len(chain)
+            Rwb_n, pwb_n, vel_n, bias_n, p_n, inlier, _ = vi_ba.vi_bundle_adjust(
+                self.cam, prob, iters=iters)
+        K, n = len(chain), len(pts)
         flat = torch.cat([Rwb_n.reshape(-1), pwb_n.reshape(-1), vel_n.reshape(-1),
-                          bias_n.reshape(-1), p_n[: len(pts)].reshape(-1)]).cpu().numpy()
-        at = np.cumsum([0, 9 * K, 3 * K, 3 * K, 6 * K])
-        Rwb_n, pwb_n, vel_n, bias_n = (flat[a:b].reshape(K, -1) for a, b in zip(at[:-1], at[1:]))
+                          bias_n.reshape(-1), p_n[:n].reshape(-1),
+                          inlier[:n].reshape(-1).to(p_n.dtype)]).cpu().numpy()
+        at = np.cumsum([0, 9 * K, 3 * K, 3 * K, 6 * K, 3 * n])
+        Rwb_n, pwb_n, vel_n, bias_n = (flat[a:b].reshape(K, -1) for a, b in zip(at[:-2], at[1:-1]))
         Rbc = np.asarray(self.imu.calib.Rbc, np.float32)
         tbc = np.asarray(self.imu.calib.tbc, np.float32)
         Rwc = Rwb_n.reshape(K, 3, 3) @ Rbc
@@ -638,14 +661,16 @@ class LocalMapper:
         m.kf_t[chain] = -(Rwc.transpose(0, 2, 1) @ cw[..., None])[..., 0]
         m.kf_vel[chain] = vel_n
         m.kf_bias[chain] = bias_n
-        m.mp_pos[pts] = flat[at[-1]:].reshape(-1, 3)
+        m.mp_pos[pts] = flat[at[-2]:at[-1]].reshape(-1, 3)
         self.imu.bias = bias_n[-1].copy()
+        self._erase_outliers(pts, obs_valid, flat[at[-1]:].reshape(n, -1) > 0.5)
         m.version += 1
 
     def _vi_ba_problem(self, chain, pts, P: int, seam=()):
-        """The VI-BA problem over the temporal chain and the points `pts`
-        (padded to P), on the mapper's device, the first keyframe's pose
-        fixed; or None when no link carries an inertial factor. A link
+        """(problem, host obs_valid): the VI-BA problem over the temporal
+        chain and the points `pts` (padded to P), on the mapper's device, the
+        first keyframe's pose fixed, and its observation mask on the host;
+        or None when no link carries an inertial factor. A link
         without a preintegration, and the links listed in `seam` (the j-th
         joins chain[j] and chain[j+1]: cross-map welds, whose stored
         preintegration belongs to another predecessor), carry none."""
@@ -666,16 +691,15 @@ class LocalMapper:
         p_valid = np.zeros((P,), bool)
         p_arr[: len(pts)] = m.mp_pos[pts]
         p_valid[: len(pts)] = True
-        obs_cam, obs_uv, obs_ur, obs_level, obs_valid = _build_obs_tables(
-            m, pts, {c: i for i, c in enumerate(chain)}, P)
+        tables = _build_obs_tables(m, pts, {c: i for i, c in enumerate(chain)}, P)
         T = self._tensor
-        return vi_ba.VIBAProblem(
+        prob = vi_ba.VIBAProblem(
             Rwb=T(Rwb), pwb=T(pwb), vel=T(m.kf_vel[chain]), bias=T(m.kf_bias[chain]),
             fixed=T(np.arange(K) < 1), Rcb=T(Rcb), tcb=T((-Rcb @ tbc).astype(np.float32)),
-            p=T(p_arr), p_valid=T(p_valid), obs_cam=T(obs_cam), obs_uv=T(obs_uv),
-            obs_ur=T(obs_ur), obs_level=T(obs_level), obs_valid=T(obs_valid),
-            pre=pre_stack, pre_valid=T(pre_ok),
+            p=T(p_arr), p_valid=T(p_valid), pre=pre_stack, pre_valid=T(pre_ok),
+            **{k: None if a is None else T(a) for k, a in zip(_OBS_FIELDS, tables)},
         )
+        return prob, tables[4]
 
     # ------------------------------------------------------------- cull KFs
     def cull_keyframes(self, kf: int):
@@ -733,18 +757,42 @@ def _stack_preints(pres) -> imu_mod.Preintegrated:
     return imu_mod.Preintegrated(*(torch.stack(xs) for xs in zip(*pres)))
 
 
+_OBS_FIELDS = ("obs_cam", "obs_uv", "obs_ur", "obs_level", "obs_valid", "obs_rig", "rig_R",
+               "rig_t")
+
+
 def _build_obs_tables(m: MapState, pts, cam_slot, P):
     """The padded (P, D) observation tables of a visual BA problem over the
     points `pts`, observations of cameras outside `cam_slot` masked out.
-    Returns (obs_cam, obs_uv, obs_ur, obs_level, obs_valid)."""
+    For a map with a fisheye rig (`m.rig`) the tables are 2D wide: columns
+    [D, 2D) carry the right-camera rows of the same slots (obs_rig = 1),
+    the reference's EdgeSE3ProjectXYZToBody measurements. Returns the
+    `_OBS_FIELDS` (obs_cam, obs_uv, obs_ur, obs_level, obs_valid, obs_rig,
+    rig_R, rig_t), the last three None without a rig."""
     D = m.cfg.obs_cap
-    obs_cam = np.zeros((P, D), np.int32)
-    obs_uv = np.zeros((P, D, 2), np.float32)
-    obs_ur = np.full((P, D), -1.0, np.float32)
-    obs_level = np.zeros((P, D), np.int32)
-    obs_valid = np.zeros((P, D), bool)
-    _fill_obs_table(m, pts, cam_slot, obs_cam, obs_uv, obs_ur, obs_level, obs_valid)
-    return obs_cam, obs_uv, obs_ur, obs_level, obs_valid
+    rig = m.rig is not None
+    D2 = 2 * D if rig else D
+    obs_cam = np.zeros((P, D2), np.int32)
+    obs_uv = np.zeros((P, D2, 2), np.float32)
+    obs_ur = np.full((P, D2), -1.0, np.float32)
+    obs_level = np.zeros((P, D2), np.int32)
+    obs_valid = np.zeros((P, D2), bool)
+    _fill_obs_table(m, pts, cam_slot, obs_cam[:, :D], obs_uv[:, :D], obs_ur[:, :D],
+                    obs_level[:, :D], obs_valid[:, :D])
+    if not rig:
+        return obs_cam, obs_uv, obs_ur, obs_level, obs_valid, None, None, None
+    n = len(pts)
+    r_lv = m.mp_obs_r_level[pts]
+    obs_cam[:n, D:] = obs_cam[:n, :D]
+    obs_uv[:n, D:] = m.mp_obs_r_uv[pts]
+    obs_level[:n, D:] = np.maximum(r_lv, 0)
+    obs_valid[:n, D:] = (r_lv >= 0) & obs_valid[:n, :D]
+    obs_rig = np.zeros((P, D2), np.int32)
+    obs_rig[:, D:] = 1
+    R_rl, t_rl = m.rig
+    rig_R = np.stack([np.eye(3, dtype=np.float32), np.asarray(R_rl, np.float32)])
+    rig_t = np.stack([np.zeros(3, np.float32), np.asarray(t_rl, np.float32)])
+    return obs_cam, obs_uv, obs_ur, obs_level, obs_valid, obs_rig, rig_R, rig_t
 
 
 def _fill_obs_table(m, pts, cam_slot, obs_cam, obs_uv, obs_ur, obs_level, obs_valid):

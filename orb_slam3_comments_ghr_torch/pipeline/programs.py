@@ -1,13 +1,15 @@
 """The per-frame tracking programs and the mapper's programs.
 
-Port of `orb_slam3_comments_ghr_tpu/pipeline/programs.py`, monocular and
-rectified-stereo parts:
+Port of `orb_slam3_comments_ghr_tpu/pipeline/programs.py`:
 - per frame: ORB extraction, then frustum gate, windowed Hamming top-2 with
   ratio test, duplicate resolution, rotation histogram and the 4-round Huber
   pose LM (Tracking.cc TrackLocalMap / SearchByProjection /
   PoseOptimization): `extract_only`, `track_against_points`,
   `extract_and_track`; for a stereo pair both extractions and the row
-  matcher come first (`extract_stereo_only`, `extract_and_track_stereo`);
+  matcher come first (`extract_stereo_only`, `extract_and_track_stereo`).
+  With `undistort` (a fisheye camera) the left keypoints are mapped to the
+  virtual pinhole after extraction; a non-rectified fisheye pair gets its
+  depths from `fisheye_stereo_depth` instead of the row matcher;
 - per keyframe: epipolar matching and triangulation against the covisible
   neighbours (`map_new_points_multi`) and the projection fuse into them
   (`fuse_project_multi`).
@@ -136,14 +138,18 @@ def extract_only(
     min_th: float = 7.0,
     undistort: bool = False,
 ):
-    """Extraction half of the per-frame program. `undistort` (fisheye) is
-    not ported yet and must be False."""
-    if undistort:
-        raise NotImplementedError("fisheye undistortion is not ported yet")
-    return extract_batched(
+    """Extraction half of the per-frame program; with `undistort` the
+    keypoints are mapped to the virtual pinhole of `extract_cam` (padded
+    slots too: they stay finite and masked)."""
+    feats = extract_batched(
         img, n_features=n_features, n_levels=n_levels, scale=scale,
         ini_th=ini_th, min_th=min_th,
     )
+    return _undistorted(extract_cam, feats) if undistort else feats
+
+
+def _undistorted(cam: cameras.Camera, feats):
+    return feats._replace(xy=cameras.undistort_points(cam, feats.xy))
 
 
 def extract_and_track(
@@ -184,16 +190,15 @@ def extract_stereo_only(
 ):
     """Extraction half of the stereo per-frame program: both extractions
     (the reference runs them on two threads, Frame.cc stereo constructor),
-    then the row matcher, which fills the left features' u_right and depth.
-    `undistort` (fisheye) is not ported yet and must be False."""
-    if undistort:
-        raise NotImplementedError("fisheye undistortion is not ported yet")
+    then the row matcher, which fills the left features' u_right and depth;
+    with `undistort` the left keypoints are then undistorted."""
     kw = dict(n_features=n_features, n_levels=n_levels, scale=scale, ini_th=ini_th, min_th=min_th)
     fl = extract_batched(img_l, **kw)
     fr = extract_batched(img_r, **kw)
     u_right, depth = stereo.stereo_match(extract_cam, fl, fr, img_l.to(torch.float32),
                                          img_r.to(torch.float32), scale=scale)
-    return fl._replace(u_right=u_right, depth=depth)
+    fl = fl._replace(u_right=u_right, depth=depth)
+    return _undistorted(extract_cam, fl) if undistort else fl
 
 
 def extract_and_track_stereo(
@@ -244,6 +249,46 @@ def epipolar_match(cam: cameras.Camera, desc1, xy1, level1, free1,
 
 def _homog(x):
     return torch.cat([x, torch.ones_like(x[:, :1])], dim=-1)
+
+
+def fisheye_stereo_depth(cam1: cameras.Camera, cam2: cameras.Camera,
+                         xy1, level1, desc1, valid1, xy2, level2, desc2, valid2, R12, t12):
+    """KannalaBrandt8::matchAndtriangulate (KannalaBrandt8.cpp:438) for a
+    non-rectified pair, on keypoints already undistorted to the virtual
+    pinholes cam1 (left) and cam2 (right); x_l = R12 x_r + t12. Matching:
+    the right keypoints within the epipolar band of each left one (squared
+    point-line distance < 3.84 sigma^2 of the right octave), TH_LOW, ratio
+    0.7, one left match per right keypoint. Then DLT triangulation in the
+    left frame, cheirality (z > 0.05 in both), and the reprojection gates
+    (< 5.991 px^2 left, < 5.991 sigma^2 right). Returns (depth, right_idx,
+    matched) per left keypoint, depth -1 where not matched. The band is not
+    a window, so this is the plain masked matcher (no kernel)."""
+    dev = xy1.device
+    K1, K2 = cameras.camera_matrix(cam1, dev), cameras.camera_matrix(cam2, dev)
+    F = torch.linalg.inv_ex(K1)[0].T @ (lie.hat(t12) @ R12) @ torch.linalg.inv_ex(K2)[0]
+    lines2 = _homog(xy1) @ F                    # x1^T F x2 = 0
+    num = lines2 @ _homog(xy2).T
+    den = torch.clamp_min(lines2[:, 0:1] ** 2 + lines2[:, 1:2] ** 2, 1e-12)
+    sigma2 = (1.2 ** level2.to(torch.float32)) ** 2
+    mask = (num * num / den < 3.84 * sigma2[None, :]) & valid1[:, None] & valid2[None, :]
+    idx, dist, ok = matching.search_by_window(desc1, desc2, mask, th=matching.TH_LOW, ratio=0.7)
+    ok = matching.resolve_duplicates(idx, dist, ok, xy2.shape[0])
+
+    # in the left frame: P1 = K1 [I|0], the right camera at R21 = R12^T,
+    # t21 = -R12^T t12
+    R21 = R12.T
+    t21 = -R21 @ t12
+    P1 = triangulate.projection_matrix(K1, torch.eye(3, device=dev), torch.zeros(3, device=dev))
+    P2 = triangulate.projection_matrix(K2, R21, t21)
+    sel = idx.long()
+    xy2m = xy2[sel]
+    X = triangulate.triangulate(P1, P2, xy1, xy2m)
+    Xr = X @ R21.T + t21
+    e1 = torch.sum((cameras.project(cam1, X) - xy1) ** 2, -1)
+    e2 = torch.sum((cameras.project(cam2, Xr) - xy2m) ** 2, -1)
+    good = (ok & (X[..., 2] > 0.05) & (Xr[..., 2] > 0.05) & torch.isfinite(X).all(-1)
+            & (e1 < 5.991) & (e2 < 5.991 * sigma2[sel]))
+    return torch.where(good, X[..., 2], -1.0), idx, good
 
 
 def triangulate_matches(cam: cameras.Camera, R1, t1, R2, t2, uv1, uv2, level1, level2, ok,

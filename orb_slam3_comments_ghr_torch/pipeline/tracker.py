@@ -364,8 +364,15 @@ class Tracker:
             self._init_time = timestamp
             return False
 
-        res = twoview.reconstruct(self.cam, self._init_feats.xy, feats.xy[idx.long()], ok,
-                                  _seed(self.generator, self._rng))
+        # a match whose keypoint lies more than an image size outside the
+        # (virtual pinhole) image is left out of the reconstruction: a fisheye
+        # keypoint near 90 degrees off the axis undistorts to 1e5-5e6 px and
+        # would dominate the Hartley normalization (ROADMAP C11); raw pinhole
+        # keypoints are always inside
+        x1, x2 = self._init_feats.xy, feats.xy[idx.long()]
+        span = -float(max(self.cam.width, self.cam.height))
+        near = cameras.in_image(self.cam, x1, span) & cameras.in_image(self.cam, x2, span)
+        res = twoview.reconstruct(self.cam, x1, x2, ok & near, _seed(self.generator, self._rng))
         if not bool(res.success):
             return False
         self._create_initial_map_mono(self._init_feats, feats, idx, res, self._init_time, timestamp)

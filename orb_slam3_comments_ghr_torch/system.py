@@ -3,17 +3,21 @@
 Port of `orb_slam3_comments_ghr_tpu/system.py` (ORB_SLAM3::System,
 reference include/System.h:104-195): construct with a camera + config (and,
 for the IMU_* sensors, an `imu_calib`), feed frames with `track_monocular`,
-`track_stereo` (a rectified pair) or `track_rgbd` (an image and its depth
+`track_stereo` (a rectified pair), `track_stereo_fisheye` (a non-rectified
+fisheye pair and its extrinsics) or `track_rgbd` (an image and its depth
 map), or features with `track_features`, each with the IMU rows since the
 last frame as `imu_samples` (or fed ahead with `feed_imu`); query the state,
 export trajectories. Tracking runs inline per frame, local mapping and then
 loop closing (`enable_loop_closing`, on by default) inline per keyframe.
+A Kannala-Brandt (KB8) camera extracts on the raw image and runs its
+geometry on undistorted keypoints under the virtual pinhole with the same
+intrinsics (`cameras.pinhole_equivalent`).
 
 The system runs on one device: the card (`torch.device("cuda")`) unless the
 caller passes `device="cpu"`. The per-frame and per-keyframe programs run
 there; the map and the IMU sample queue stay on the host. Not ported yet,
-and refused with NotImplementedError: asynchronous mapping, fisheye
-(ROADMAP A7), distributed BA (A8) and atlas files.
+and refused with NotImplementedError: asynchronous mapping, distributed BA
+(ROADMAP A8) and atlas files.
 """
 
 from __future__ import annotations
@@ -39,20 +43,18 @@ from .utils.config import SlamConfig
 from .utils.device import resolve_device
 
 
-def _check_supported(cam: cameras.Camera, cfg: SlamConfig):
+def _check_supported(cfg: SlamConfig):
     if cfg.dba_devices != 0:
         raise NotImplementedError("distributed BA is not ported yet (ROADMAP A8): set dba_devices=0")
     if cfg.async_mapping:
         raise NotImplementedError("asynchronous mapping is not ported yet: set async_mapping=False")
-    if cam.kind != cameras.PINHOLE:
-        raise NotImplementedError("the fisheye camera model is not ported yet (ROADMAP A7)")
 
 
 class SLAM:
     def __init__(self, cam: cameras.Camera, cfg: Optional[SlamConfig] = None,
                  imu_calib: Optional[imu_mod.ImuCalib] = None, device=None):
         self.cfg = cfg or SlamConfig()
-        _check_supported(cam, self.cfg)
+        _check_supported(self.cfg)
         self.device = resolve_device(device)
         self.cam = cam
         self.geom_cam = cameras.pinhole_equivalent(cam)
@@ -117,7 +119,7 @@ class SLAM:
             self.cam, self.geom_cam, self._upload(img), lp, R0, t0,
             n_features=self.cfg.n_features, n_levels=self.cfg.n_levels,
             scale=self.cfg.scale_factor, ini_th=self.cfg.ini_th_fast,
-            min_th=self.cfg.min_th_fast, th=th,
+            min_th=self.cfg.min_th_fast, th=th, undistort=self._fisheye,
         )
         return self.track_features(feats, timestamp, precomputed=(res,) if ready else None)
 
@@ -132,9 +134,73 @@ class SLAM:
             self.cam, self.geom_cam, self._upload(img_left), self._upload(img_right), lp, R0, t0,
             n_features=self.cfg.n_features, n_levels=self.cfg.n_levels,
             scale=self.cfg.scale_factor, ini_th=self.cfg.ini_th_fast,
-            min_th=self.cfg.min_th_fast, th=th,
+            min_th=self.cfg.min_th_fast, th=th, undistort=self._fisheye,
         )
         return self.track_features(feats, timestamp, precomputed=(res,) if ready else None)
+
+    def track_stereo_fisheye(self, img_left, img_right, cam_right: cameras.Camera, R_lr, t_lr,
+                             timestamp: float, imu_samples=None,
+                             features=None) -> Optional[np.ndarray]:
+        """A non-rectified (e.g. KB8 fisheye) stereo pair with the
+        extrinsics x_l = R_lr x_r + t_lr (KannalaBrandt8::matchAndtriangulate
+        and the Frame fisheye constructor). Each view's keypoints are
+        undistorted with its own camera, matched under the pair's epipolar
+        geometry and triangulated (`programs.fisheye_stereo_depth`); the
+        depths seed metric map points. The rig is registered with the map
+        on the first call. When the frame becomes a keyframe, its matched
+        right-view pixels, re-expressed in the left virtual pinhole's
+        intrinsics, become right-camera observations of its points
+        (`MapState.set_right_observations`), which both BAs constrain
+        through the rig (`obs_rig`). `features=(fl, fr)` passes features
+        extracted elsewhere (raw pixels, on the system's device) instead
+        of the images. Returns 4x4 Tcw or None."""
+        if imu_samples is not None:
+            self.feed_imu(imu_samples)
+        if features is None:
+            kw = dict(n_features=self.cfg.n_features, n_levels=self.cfg.n_levels,
+                      scale=self.cfg.scale_factor, ini_th=self.cfg.ini_th_fast,
+                      min_th=self.cfg.min_th_fast)
+            features = (programs.extract_only(self.cam, self._upload(img_left), **kw),
+                        programs.extract_only(cam_right, self._upload(img_right), **kw))
+        fl, fr = features
+        R_lr = np.asarray(R_lr, np.float32)
+        t_lr = np.asarray(t_lr, np.float32)
+        xy1 = cameras.undistort_points(self.cam, fl.xy)
+        xy2 = cameras.undistort_points(cam_right, fr.xy)
+        geom_r = cameras.pinhole_equivalent(cam_right)
+        depth, ridx, matched = programs.fisheye_stereo_depth(
+            self.geom_cam, geom_r, xy1, fl.level, fl.desc, fl.valid,
+            xy2, fr.level, fr.desc, fr.valid, self._upload(R_lr), self._upload(t_lr))
+        if self.map.rig is None:  # x_r = R_rl x_l + t_rl
+            self.map.rig = (R_lr.T.copy(), -R_lr.T @ t_lr)
+        n_kf_before = self.map.n_kf
+        pose = self.track_features(fl._replace(xy=xy1, depth=depth), timestamp)
+        if self.map.n_kf > n_kf_before:
+            self._attach_right_observations(self.map.n_kf - 1, geom_r, matched, xy2, fr.level,
+                                            ridx)
+        return pose
+
+    def _attach_right_observations(self, kf: int, geom_r: cameras.Camera, matched, xy2, level2,
+                                   ridx):
+        """The new keyframe's matched right-view keypoints as right-camera
+        observations of its points: one packed copy to the host (matched,
+        uv, level per left keypoint), uv mapped from the right virtual
+        pinhole to the left one's intrinsics, so that BA projects every row
+        with one camera."""
+        sel = ridx.long()
+        packed = torch.cat([matched.to(torch.float32)[:, None], xy2[sel],
+                            level2[sel].to(torch.float32)[:, None]], dim=1).cpu().numpy()
+        mp_row = self.map.kf_feat_mp[kf]
+        n = len(mp_row)
+        take = (mp_row >= 0) & (packed[:n, 0] > 0.5)
+        if not take.any():
+            return
+        g = self.geom_cam
+        norm = (packed[:n][take, 1:3] - np.array([geom_r.cx, geom_r.cy])) / np.array(
+            [geom_r.fx, geom_r.fy])
+        uv = norm * np.array([g.fx, g.fy]) + np.array([g.cx, g.cy])
+        self.map.set_right_observations(kf, mp_row[take], uv.astype(np.float32),
+                                        packed[:n][take, 3].astype(np.int32))
 
     def track_rgbd(self, img, depth_map, timestamp: float,
                    imu_samples=None) -> Optional[np.ndarray]:
@@ -150,7 +216,15 @@ class SLAM:
             ini_th=self.cfg.ini_th_fast, min_th=self.cfg.min_th_fast,
         )
         u_right, depth = stereo.depth_to_stereo(self.cam, feats, self._upload(depth_map))
-        return self.track_features(feats._replace(u_right=u_right, depth=depth), timestamp)
+        feats = feats._replace(u_right=u_right, depth=depth)
+        if self._fisheye:
+            feats = feats._replace(xy=cameras.undistort_points(self.cam, feats.xy))
+        return self.track_features(feats, timestamp)
+
+    @property
+    def _fisheye(self) -> bool:
+        """Keypoints need undistorting to the virtual pinhole."""
+        return self.cam.kind != cameras.PINHOLE
 
     def _prepare(self, timestamp: float):
         """(ready, local points, R0, t0, search-window multiplier) for the

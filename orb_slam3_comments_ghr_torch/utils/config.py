@@ -3,8 +3,8 @@ src/Settings.cc — same knobs, dataclass form; YAML ingestion in io.config).
 
 Copied unchanged from `orb_slam3_comments_ghr_tpu/utils/config.py`, so the
 port needs no JAX. The port runs all six sensors, with loop closing on or
-off; `SLAM` raises NotImplementedError for async mapping, a fisheye camera
-(ROADMAP A7) and distributed BA (A8)."""
+off, with a pinhole or a KB8 fisheye camera; `SLAM` raises
+NotImplementedError for async mapping and distributed BA (ROADMAP A8)."""
 
 from __future__ import annotations
 

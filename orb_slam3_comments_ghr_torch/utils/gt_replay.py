@@ -147,10 +147,20 @@ def render_room(scene: RoomScene, cam, R_cw: np.ndarray, t_cw: np.ndarray,
                 return_depth: bool = False):
     """Exact per-pixel ray against the room box (nearest positive face hit,
     nearest-texel sampling). With return_depth, also the exact per-pixel
-    z-depth in the camera frame (the ideal RGB-D sensor)."""
+    z-depth in the camera frame (the ideal RGB-D sensor). A KB8 camera's
+    rays come from its exact inverse (`synthetic.fisheye_rays`); a pixel
+    90 degrees or more from its axis is the 40-grey background."""
+    from ..ops.cameras import PINHOLE
+
     h, w = cam.height, cam.width
-    u, v = np.meshgrid(np.arange(w, dtype=np.float64), np.arange(h, dtype=np.float64))
-    rays_c = np.stack([(u - cam.cx) / cam.fx, (v - cam.cy) / cam.fy, np.ones_like(u)], -1)
+    seen = True  # every pixel of a pinhole camera sees the room
+    if cam.kind == PINHOLE:
+        u, v = np.meshgrid(np.arange(w, dtype=np.float64), np.arange(h, dtype=np.float64))
+        rays_c = np.stack([(u - cam.cx) / cam.fx, (v - cam.cy) / cam.fy, np.ones_like(u)], -1)
+    else:
+        from .synthetic import fisheye_rays
+
+        rays_c, seen = fisheye_rays(cam)
     R_wc = R_cw.T.astype(np.float64)
     c = -R_wc @ t_cw.astype(np.float64)
     rays = rays_c @ R_wc.T                                  # (h,w,3)
@@ -158,24 +168,27 @@ def render_room(scene: RoomScene, cam, R_cw: np.ndarray, t_cw: np.ndarray,
     best_lam = np.full((h, w), np.inf)
     img = np.full((h, w), 40.0, np.float32)
     face = 0
-    for axis in range(3):
-        u_ax, v_ax = (axis + 1) % 3, (axis + 2) % 3
-        for plane in (scene.lo[axis], scene.hi[axis]):
-            denom = rays[..., axis]
-            lam = np.where(np.abs(denom) > 1e-9, (plane - c[axis]) / denom, np.inf)
-            X_u = c[u_ax] + lam * rays[..., u_ax]
-            X_v = c[v_ax] + lam * rays[..., v_ax]
-            hit = ((lam > 1e-6) & (lam < best_lam)
-                   & (X_u >= scene.lo[u_ax]) & (X_u <= scene.hi[u_ax])
-                   & (X_v >= scene.lo[v_ax]) & (X_v <= scene.hi[v_ax]))
-            tex = scene.textures[face]
-            ti = np.clip(((X_v - scene.lo[v_ax]) * scene.scale).astype(np.int64), 0,
-                         tex.shape[0] - 1)
-            tj = np.clip(((X_u - scene.lo[u_ax]) * scene.scale).astype(np.int64), 0,
-                         tex.shape[1] - 1)
-            img = np.where(hit, tex[ti, tj], img)
-            best_lam = np.where(hit, lam, best_lam)
-            face += 1
+    # a ray parallel to a face (a zero component: a pixel on an integer
+    # principal point's row or column) gives inf and NaN there, which `hit` masks
+    with np.errstate(divide="ignore", invalid="ignore"):
+        for axis in range(3):
+            u_ax, v_ax = (axis + 1) % 3, (axis + 2) % 3
+            for plane in (scene.lo[axis], scene.hi[axis]):
+                denom = rays[..., axis]
+                lam = np.where(np.abs(denom) > 1e-9, (plane - c[axis]) / denom, np.inf)
+                X_u = c[u_ax] + lam * rays[..., u_ax]
+                X_v = c[v_ax] + lam * rays[..., v_ax]
+                hit = ((lam > 1e-6) & (lam < best_lam) & seen
+                       & (X_u >= scene.lo[u_ax]) & (X_u <= scene.hi[u_ax])
+                       & (X_v >= scene.lo[v_ax]) & (X_v <= scene.hi[v_ax]))
+                tex = scene.textures[face]
+                ti = np.clip(((X_v - scene.lo[v_ax]) * scene.scale).astype(np.int64), 0,
+                             tex.shape[0] - 1)
+                tj = np.clip(((X_u - scene.lo[u_ax]) * scene.scale).astype(np.int64), 0,
+                             tex.shape[1] - 1)
+                img = np.where(hit, tex[ti, tj], img)
+                best_lam = np.where(hit, lam, best_lam)
+                face += 1
     if return_depth:
         depth = np.where(np.isfinite(best_lam), best_lam, 0.0)
         return img.astype(np.float32), depth.astype(np.float32)

@@ -15,6 +15,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..ops import cameras
 from ..pipeline.programs import LocalPoints
 
 
@@ -77,20 +78,50 @@ def circular_trajectory(n_frames: int, radius: float = 2.0, z_amp: float = 0.2,
     return poses
 
 
+def fisheye_rays(cam):
+    """A KB8 camera's per-pixel rays (h,w,3) with z = 1 (float64), from the
+    exact inverse of its theta polynomial (Newton to convergence, no
+    clamp), and (h,w) bool: the ray lies less than 90 degrees from the
+    optical axis. A pixel beyond 90 degrees sees nothing."""
+    u, v = np.meshgrid(np.arange(cam.width, dtype=np.float64),
+                       np.arange(cam.height, dtype=np.float64))
+    mx, my = (u - cam.cx) / cam.fx, (v - cam.cy) / cam.fy
+    theta_d = np.hypot(mx, my)
+    k1, k2, k3, k4 = cam.k1, cam.k2, cam.k3, cam.k4
+    theta = theta_d.copy()
+    for _ in range(30):
+        t2 = theta * theta
+        f = theta * (1 + t2 * (k1 + t2 * (k2 + t2 * (k3 + t2 * k4)))) - theta_d
+        theta = theta - f / (1 + t2 * (3 * k1 + t2 * (5 * k2 + t2 * (7 * k3 + t2 * 9 * k4))))
+    valid = (theta < np.pi / 2) & (np.abs(f) < 1e-9)
+    # on the axis the pinhole limit; a pixel that sees nothing keeps the
+    # pinhole ray, which the renderers mask
+    scale = np.where(valid & (theta_d > 1e-12), np.tan(np.where(valid, theta, 0.0))
+                     / np.maximum(theta_d, 1e-12), 1.0)
+    return np.stack([mx * scale, my * scale, np.ones_like(mx)], axis=-1), valid
+
+
 def _rays(cam, R_cw, t_cw):
-    """Per-pixel camera rays (h,w,3) with z = 1, world rays and the camera
-    centre."""
-    u, v = np.meshgrid(np.arange(cam.width, dtype=np.float32),
-                       np.arange(cam.height, dtype=np.float32))
-    rays_c = np.stack([(u - cam.cx) / cam.fx, (v - cam.cy) / cam.fy, np.ones_like(u)], axis=-1)
+    """Per-pixel camera rays (h,w,3) with z = 1, world rays, the camera
+    centre, and the pixels that see the scene ((h,w) bool; all of them for
+    a pinhole camera; `fisheye_rays` for KB8)."""
+    if cam.kind == cameras.PINHOLE:
+        u, v = np.meshgrid(np.arange(cam.width, dtype=np.float32),
+                           np.arange(cam.height, dtype=np.float32))
+        rays_c = np.stack([(u - cam.cx) / cam.fx, (v - cam.cy) / cam.fy, np.ones_like(u)], axis=-1)
+        valid = np.ones(u.shape, bool)
+    else:
+        rays_c, valid = fisheye_rays(cam)
+        rays_c = rays_c.astype(np.float32)
     R_wc = R_cw.T
-    return rays_c, rays_c @ R_wc.T, -R_wc @ t_cw
+    return rays_c, rays_c @ R_wc.T, -R_wc @ t_cw, valid
 
 
 def render_image(scene: TexturedScene, cam, R_cw: np.ndarray, t_cw: np.ndarray) -> np.ndarray:
-    """Exact perspective render (per-pixel plane intersection +
-    nearest-texel sampling); (h, w) float32."""
-    _, rays_w, c = _rays(cam, R_cw, t_cw)
+    """Exact render (per-pixel plane intersection + nearest-texel
+    sampling) through the camera's model, pinhole or KB8; (h, w) float32,
+    40 where no plane is seen."""
+    _, rays_w, c, seen = _rays(cam, R_cw, t_cw)
 
     def sample(tex, z_plane):
         lam = (z_plane - c[2]) / rays_w[..., 2]
@@ -109,14 +140,14 @@ def render_image(scene: TexturedScene, cam, R_cw: np.ndarray, t_cw: np.ndarray) 
         & (lam_near > 0)
     )
     img = np.where(near_hit & (lam_far > 0), img_near, img_far)
-    img = np.where(lam_far > 0, img, 40.0)
+    img = np.where((lam_far > 0) & seen, img, 40.0)
     return img.astype(np.float32)
 
 
 def depth_map(scene: TexturedScene, cam, R_cw: np.ndarray, t_cw: np.ndarray) -> np.ndarray:
     """Exact per-pixel z-depth of the two-plane scene; (h, w) float32, 0
     where no plane is hit."""
-    _, rays_w, c = _rays(cam, R_cw, t_cw)
+    _, rays_w, c, seen = _rays(cam, R_cw, t_cw)
     lam_far = (scene.z_far - c[2]) / rays_w[..., 2]
     lam_near = (scene.z_near - c[2]) / rays_w[..., 2]
     X_near = c[None, None, :] + lam_near[..., None] * rays_w
@@ -127,13 +158,14 @@ def depth_map(scene: TexturedScene, cam, R_cw: np.ndarray, t_cw: np.ndarray) -> 
     )
     # rays have z = 1 in the camera frame, so the ray parameter is the depth
     lam = np.where(near_hit & (lam_far > 0), lam_near, lam_far)
-    return np.where(lam > 0, lam, 0.0).astype(np.float32)
+    return np.where((lam > 0) & seen, lam, 0.0).astype(np.float32)
 
 
 def local_points_from_keyframes(cam, feats_list, poses, depth_maps, cap: int,
                                 n_levels: int = 8, scale: float = 1.2) -> LocalPoints:
     """`LocalPoints` from keyframe features: every valid keypoint with depth
-    at its nearest pixel is back-projected; its normal is the unit vector
+    at its nearest pixel is back-projected (a KB8 keypoint through its
+    undistorted position under the virtual pinhole); its normal is the unit vector
     from the keyframe centre, max_dist = dist * scale^level and
     min_dist = max_dist / scale^(n_levels-1); descriptor and angle are the
     keyframe's. Keyframes are taken in order, truncated and padded to
@@ -145,6 +177,8 @@ def local_points_from_keyframes(cam, feats_list, poses, depth_maps, cap: int,
         px = np.clip(np.round(xy).astype(np.int64), 0, [depth.shape[1] - 1, depth.shape[0] - 1])
         z = depth[px[:, 1], px[:, 0]]
         ok &= z > 0
+        if cam.kind != cameras.PINHOLE:
+            xy = cameras.undistort_points(cam, f.xy).cpu().numpy()
         pc = np.stack([(xy[:, 0] - cam.cx) / cam.fx * z, (xy[:, 1] - cam.cy) / cam.fy * z, z], -1)
         pw = (pc[ok] - t_cw) @ R_cw  # R^T (pc - t)
         d = pw - (-R_cw.T @ t_cw)
@@ -219,18 +253,22 @@ def render_features(world: World, cam, R_cw: np.ndarray, t_cw: np.ndarray, n_fea
     with per-landmark descriptors, a few bits flipped per observation: the
     ideal front end. With `stereo` (and a camera with bf > 0) every feature
     also gets its depth, with 1 cm of noise, and the matching right-image u.
-    Returns (features, landmark ids). The same draws and arithmetic as the
-    JAX package's `render_features`."""
+    A KB8 camera projects through its fisheye model, so the features hold
+    raw fisheye pixels. Returns (features, landmark ids). The same draws and
+    arithmetic as the JAX package's `render_features`."""
     from ..frontend.types import Features
 
     rng = np.random.default_rng(seed)
     pc = world.points @ R_cw.T + t_cw
     z = pc[:, 2]
-    # the pinhole projection in float32, as the JAX package computes it
     pc32 = pc.astype(np.float32)
-    inv_z = np.float32(1.0) / np.where(np.abs(pc32[:, 2]) < 1e-9, np.float32(1e-9), pc32[:, 2])
-    uv = np.stack([np.float32(cam.fx) * pc32[:, 0] * inv_z + np.float32(cam.cx),
-                   np.float32(cam.fy) * pc32[:, 1] * inv_z + np.float32(cam.cy)], -1)
+    if cam.kind == cameras.PINHOLE:
+        # the pinhole projection in float32, as the JAX package computes it
+        inv_z = np.float32(1.0) / np.where(np.abs(pc32[:, 2]) < 1e-9, np.float32(1e-9), pc32[:, 2])
+        uv = np.stack([np.float32(cam.fx) * pc32[:, 0] * inv_z + np.float32(cam.cx),
+                       np.float32(cam.fy) * pc32[:, 1] * inv_z + np.float32(cam.cy)], -1)
+    else:  # raw fisheye pixels, as a real extractor on the KB8 image gives them
+        uv = cameras.project(cam, torch.from_numpy(pc32)).numpy()
     margin = 10.0
     vis = ((z > 0.3) & (uv[:, 0] >= margin) & (uv[:, 0] < cam.width - margin)
            & (uv[:, 1] >= margin) & (uv[:, 1] < cam.height - margin))

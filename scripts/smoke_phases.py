@@ -12,7 +12,9 @@ JSON line gives the seconds each phase took and what it returned (the
 launches and matcher calls; the runs' outcome). Phases: 7
 (stereo-inertial), 8 (RGB-D-inertial), 9 (mono-inertial), 10a (the feature
 loop), 10b (the kidnap and merge), 11 (inertial loop closing: (a), (b) and
-(c) on (a)'s map; from a tree that has it). Needs one CUDA card.
+(c) on (a)'s map; from a tree that has it), 12 (the fisheye camera: (a)
+mono, (b) stereo, (c) stereo-inertial; from a tree that has it). Needs one
+CUDA card.
 """
 
 import argparse
@@ -23,7 +25,7 @@ import time
 
 PHASES = {"7": "phase7_stereo_inertial", "8": "phase8_rgbd_inertial",
           "9": "phase9_mono_inertial", "10a": "phase10_feature_loop", "10b": "phase10_merge",
-          "11": None}
+          "11": None, "12": None}
 
 
 def phase11(chip_smoke, window_match, device):
@@ -33,6 +35,16 @@ def phase11(chip_smoke, window_match, device):
     gba = chip_smoke.phase11_full_inertial_ba(snap, device)
     return n + n_b, {"a": calls, "b": calls_b}, dict(inertial_loop=loop, inertial_merge=merge,
                                                      full_inertial_ba=gba)
+
+
+def phase12(chip_smoke, window_match, device):
+    """Phase 12's three runs, as chip_smoke.main runs them."""
+    n, calls, _, mono = chip_smoke.phase12_mono_fisheye(window_match, device)
+    inputs = chip_smoke.fisheye_stereo_inputs(chip_smoke.PHASE12_VI_FRAMES)
+    n_b, calls_b, stereo = chip_smoke.phase12_stereo_fisheye(window_match, device, inputs, False)
+    n_c, calls_c, vi = chip_smoke.phase12_stereo_fisheye(window_match, device, inputs, True)
+    return n + n_b + n_c, {"a": calls, "b": calls_b, "c": calls_c}, dict(
+        mono=mono, stereo=stereo, stereo_inertial=vi)
 
 
 def main(argv=None) -> int:
@@ -55,7 +67,8 @@ def main(argv=None) -> int:
     out = {}
     for phase in args.phases:
         t0 = time.perf_counter()
-        result = (phase11(chip_smoke, window_match, device) if phase == "11"
+        run = {"11": phase11, "12": phase12}.get(phase)
+        result = (run(chip_smoke, window_match, device) if run
                   else getattr(chip_smoke, PHASES[phase])(window_match, device))
         out[phase] = dict(seconds=time.perf_counter() - t0, launches=result[0], calls=result[1],
                           result=result[-2] if phase == "7" else result[-1])

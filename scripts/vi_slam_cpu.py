@@ -26,6 +26,12 @@ walk 1e-6 / 1e-5) and feed each frame the IMU rows in (t_{i-1}, t_i].
   inside the textured room of `tests/test_image_loopclosing.py`
   (`gt_replay.make_room_scene(33, ...)`), left and right views.
 
+- `--sensor imu_stereo_fisheye` (phase 12 (c)): the configuration of
+  `imu_stereo` on the non-rectified KB8 fisheye pair of
+  `tests/test_fisheye_stereo.py` (752x480, x_l = R_lr x_r + t_lr, an 11 cm
+  baseline) through `SLAM.track_stereo_fisheye`, both views rendered from
+  `vi_sequence(150)`'s poses in room scene 33 built around them.
+
 `--arc` sets TURNS (default the setup's) and runs `vi_sequence(N,
 arc=TURNS)` over the N frames in place of the setup's sequence.
 
@@ -57,6 +63,9 @@ SETUPS = {
                                 max_frames_between_kf=10, min_init_matches=60)),
     "imu_rgbd": (61, 60, dict(n_features=768, local_points_cap=2048, local_ba_points=2048,
                               max_frames_between_kf=5)),
+    "imu_stereo_fisheye": (33, 150, dict(n_features=1024, local_points_cap=4096,
+                                         local_ba_points=2048, max_frames_between_kf=10,
+                                         min_init_matches=60)),
     "imu_stereo_loop": (33, 200, dict(n_features=1024, local_points_cap=4096,
                                       local_ba_points=2048, max_frames_between_kf=10,
                                       min_init_matches=60, enable_loop_closing=True,
@@ -64,6 +73,23 @@ SETUPS = {
 }
 LOOP_ARC = 1.1  # turns of imu_stereo_loop's sequence
 NOISE = dict(noise_g=1e-4, noise_a=1e-3, walk_g=1e-6, walk_a=1e-5)
+
+
+def fisheye_pair(cameras_mod, so3_exp):
+    """The KB8 pair of tests/test_fisheye_stereo.py in `cameras_mod`'s
+    Camera (the left one with bf = fx * baseline, for the depth threshold)
+    and its extrinsics x_l = R_lr x_r + t_lr; `so3_exp` maps a float32
+    (3,) array to the rotation."""
+    t_lr = np.array([0.11, 0.001, -0.002], np.float32)
+    cam_l = cameras_mod.Camera(
+        kind=cameras_mod.KANNALA_BRANDT8, fx=380.0, fy=380.0, cx=376.0, cy=240.0,
+        k1=0.01, k2=-0.002, k3=0.001, k4=-0.0005, width=752, height=480,
+        bf=380.0 * float(t_lr[0]))
+    cam_r = cameras_mod.Camera(
+        kind=cameras_mod.KANNALA_BRANDT8, fx=382.0, fy=382.0, cx=370.0, cy=244.0,
+        k1=0.012, k2=-0.001, k3=0.0008, k4=-0.0004, width=752, height=480)
+    R_lr = np.asarray(so3_exp(np.array([0.0, 0.02, 0.0], np.float32)), np.float32)
+    return cam_l, cam_r, R_lr, t_lr
 
 
 def main(argv=None) -> int:
@@ -99,8 +125,11 @@ def main(argv=None) -> int:
             from depth_slam_cpu import _stereo_count_twice
 
             _stereo_count_twice(jtracker)
+        from orb_slam3_comments_ghr_tpu.ops import lie
+
         calib = imu_mod.ImuCalib(Rbc=jnp.eye(3), tbc=jnp.zeros(3), **NOISE)
-        make = lambda cfg: SLAM(cameras.euroc_cam0(), cfg, imu_calib=calib)
+        make = lambda cam, cfg: SLAM(cam, cfg, imu_calib=calib)
+        so3_exp = lambda w: lie.so3_exp(jnp.asarray(w))
     else:
         import torch
 
@@ -110,18 +139,25 @@ def main(argv=None) -> int:
         from orb_slam3_comments_ghr_torch.system import SLAM
         from orb_slam3_comments_ghr_torch.utils import config
 
+        from orb_slam3_comments_ghr_torch.ops import lie
+
         calib = imu_mod.ImuCalib(Rbc=np.eye(3, dtype=np.float32), tbc=np.zeros(3, np.float32),
                                  **NOISE)
-        make = lambda cfg: SLAM(cameras.euroc_cam0(), cfg, imu_calib=calib, device="cpu")
+        make = lambda cam, cfg: SLAM(cam, cfg, imu_calib=calib, device="cpu")
+        so3_exp = lambda w: lie.so3_exp(torch.from_numpy(w)).numpy()
 
     seed, n, widths = SETUPS[args.sensor]
     n = args.frames or n
     cam = cameras.euroc_cam0()
+    fisheye = args.sensor == "imu_stereo_fisheye"
+    if fisheye:
+        cam, cam_r, R_lr, t_lr = fisheye_pair(cameras, so3_exp)
+        R_rl, t_rl = R_lr.T, -R_lr.T @ t_lr
     ring = args.sensor == "imu_stereo_loop"
     arc = args.arc or (LOOP_ARC if ring else None)
     poses, imu_rows, times = (synthetic.vi_sequence(SETUPS[args.sensor][1]) if arc is None
                               else synthetic.vi_sequence(n, arc=arc, outward=ring))
-    if ring:
+    if ring or fisheye:
         from orb_slam3_comments_ghr_torch.utils import gt_replay
 
         room = gt_replay.make_room_scene(seed, np.stack([-R.T @ t for R, t in poses]),
@@ -131,7 +167,7 @@ def main(argv=None) -> int:
         scene = synthetic.make_textured_scene(seed)
         render = lambda R, t: synthetic.render_image(scene, cam, R, t)
     stereo = args.sensor != "imu_rgbd"
-    slam = make(config.SlamConfig(sensor=config.IMU_STEREO if stereo else config.IMU_RGBD,
+    slam = make(cam, config.SlamConfig(sensor=config.IMU_STEREO if stereo else config.IMU_RGBD,
                                   **{"enable_loop_closing": False, **widths}))
     dumps = []
     if args.dump:
@@ -155,7 +191,12 @@ def main(argv=None) -> int:
                          & (imu_rows[:, 0] <= times[i])]
         rows = chunk if len(chunk) else None
         img = u8(render(R, t))
-        if stereo:
+        if fisheye:
+            img_r = u8(gt_replay.render_room(room, cam_r, (R_rl @ R).astype(np.float32),
+                                             (R_rl @ t + t_rl).astype(np.float32)))
+            pose = slam.track_stereo_fisheye(img, img_r, cam_r, R_lr, t_lr, times[i],
+                                             imu_samples=rows)
+        elif stereo:
             pose = slam.track_stereo(img, u8(render(R, t - b)), times[i], imu_samples=rows)
         else:
             pose = slam.track_rgbd(img, synthetic.depth_map(scene, cam, R, t), times[i],
@@ -176,6 +217,7 @@ def main(argv=None) -> int:
         package=args.package, sensor=args.sensor, stereo_count=args.stereo_count, frames=n,
         arc=arc, loops=getattr(slam.loopcloser, "n_loops", 0),
         merges=getattr(slam.loopcloser, "n_merges", 0), maps=slam.map.n_maps,
+        right_rows=int((slam.map.mp_obs_r_level >= 0).sum()),
         first_tracked=first, imu_init_frame=imu_init_frame, viba1=bool(slam.mapper.viba1_done), tracked=tracked,
         keyframes=slam.n_keyframes(), points=slam.n_map_points(),
         ate_trajectory_m=evaluation.ate_rmse(slam.trajectory(), gt, with_scale=False))))

@@ -82,9 +82,17 @@ def test_camera_functions():
 
 
 def test_camera_rejects_fisheye():
-    kb8 = tcam.Camera(kind=tcam.KANNALA_BRANDT8, fx=400.0, fy=400.0, cx=300.0, cy=200.0)
-    with pytest.raises(NotImplementedError):
-        tcam.project(kb8, torch.ones(1, 3))
+    """The KB8 model was refused until the fisheye slice (ROADMAP A7); now
+    `project` and `unproject` take it and agree with the JAX package (1e-3
+    px, 1e-5 on the bearing)."""
+    jkb8 = jcam.Camera(kind=jcam.KANNALA_BRANDT8, fx=400.0, fy=400.0, cx=300.0, cy=200.0,
+                       k1=0.01, k2=-0.002)
+    kb8 = camera_from_jax(jkb8)
+    pc = _cam_points(5)
+    _close(tcam.project(kb8, torch.from_numpy(pc)), jcam.project(jkb8, jnp.asarray(pc)), atol=1e-3)
+    uv = np.random.default_rng(6).random((64, 2)).astype(np.float32) * [600, 400]
+    _close(tcam.unproject(kb8, torch.from_numpy(uv)), jcam.unproject(jkb8, jnp.asarray(uv)),
+           atol=1e-5)
 
 
 def test_robust_kernels():

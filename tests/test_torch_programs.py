@@ -137,7 +137,11 @@ def test_extract_and_track_slice(sequence, i):
     assert int(t_res.n_inliers) >= 300
 
 
-def test_fisheye_undistortion_not_ported():
-    cam = tcameras.euroc_cam0()
-    with pytest.raises(NotImplementedError):
-        tprograms.extract_only(cam, torch.zeros(480, 752), undistort=True)
+def test_fisheye_undistortion_not_ported(sequence):
+    """`undistort` was refused until the fisheye slice (ROADMAP A7); now a
+    pinhole camera's keypoints pass through it unchanged."""
+    cam, frames, _, _ = sequence
+    img = torch.from_numpy(frames[1])
+    plain = tprograms.extract_only(cam, img)
+    for a, b in zip(tprograms.extract_only(cam, img, undistort=True), plain):
+        assert torch.equal(a, b)

@@ -304,9 +304,10 @@ def test_inertial_sensor_with_loop_closing_tracks(sensor):
 
 def test_unported_entry_points_raise(tmp_path):
     cfg = tconfig.SlamConfig(enable_loop_closing=False)
+    # a KB8 camera was refused until the fisheye slice (ROADMAP A7); now
+    # its geometry runs on the virtual pinhole
     fisheye = dataclasses.replace(TCAM, kind=tcameras.KANNALA_BRANDT8, k1=0.01)
-    with pytest.raises(NotImplementedError):
-        tsystem.SLAM(fisheye, cfg, device="cpu")
+    assert tsystem.SLAM(fisheye, cfg, device="cpu").geom_cam.kind == tcameras.PINHOLE
     slam = tsystem.SLAM(TCAM, cfg, device="cpu")
     # IMU samples need an IMU_* sensor (the JAX package's feed_imu)
     with pytest.raises(RuntimeError, match="IMU"):

@@ -15,6 +15,8 @@ program extracts in each package (keypoints equal on >= 98 % of slots), so
 it takes the bounds of `test_torch_programs.py`: R and t within 1e-4,
 `match_feat` equal on >= 99 % of rows, `n_inliers` within 3."""
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -214,6 +216,13 @@ def test_extract_and_track_stereo_matches_jax(local_map):
 
 
 def test_stereo_fisheye_undistortion_not_ported():
-    img = torch.zeros(480, 752)
-    with pytest.raises(NotImplementedError):
-        tprograms.extract_stereo_only(TCAM, img, img, undistort=True)
+    """`undistort` was refused until the fisheye slice (ROADMAP A7); now the
+    stereo extraction maps the left keypoints through the camera's
+    `undistort_points` after the row matcher, and leaves the rest as is."""
+    kb8 = dataclasses.replace(TCAM, kind=tcameras.KANNALA_BRANDT8, k1=0.01, k2=-0.002)
+    img_l, img_r = (torch.from_numpy(a) for a in _rendered_pair(5))
+    plain = tprograms.extract_stereo_only(kb8, img_l, img_r)
+    undist = tprograms.extract_stereo_only(kb8, img_l, img_r, undistort=True)
+    assert torch.equal(undist.xy, tcameras.undistort_points(kb8, plain.xy))
+    for name in ("level", "desc", "valid", "u_right", "depth"):
+        assert torch.equal(getattr(undist, name), getattr(plain, name)), name

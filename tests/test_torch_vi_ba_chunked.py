@@ -73,7 +73,13 @@ def test_chunked_equals_dense(point_chunk):
 
 
 def test_rig_observations_wait_for_fisheye():
+    """Rig observations were refused until the fisheye slice (ROADMAP A7);
+    now a rig whose every row is the keyframe's own camera (slot 0, the
+    identity) gives the solver's result without a rig, bit for bit."""
     tprob = _port(build_problem(K=4, P=64, seed=1)[0])
-    with pytest.raises(NotImplementedError, match="A7"):
-        tvi_ba.vi_bundle_adjust_chunked(TCAM, tprob, torch.tensor(LAM0), iters=1, point_chunk=64,
-                                        obs_rig=torch.zeros_like(tprob.obs_cam))
+    rig = tprob._replace(obs_rig=torch.zeros_like(tprob.obs_cam),
+                         rig_R=torch.eye(3).repeat(2, 1, 1), rig_t=torch.zeros(2, 3))
+    args = dict(iters=2, point_chunk=32)
+    for a, b in zip(tvi_ba.vi_bundle_adjust_chunked(TCAM, rig, torch.tensor(LAM0), **args),
+                    tvi_ba.vi_bundle_adjust_chunked(TCAM, tprob, torch.tensor(LAM0), **args)):
+        assert torch.equal(a, b)

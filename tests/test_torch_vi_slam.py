@@ -15,7 +15,9 @@ RGB-D-inertial image run in `tests/test_torch_vi_rgbd.py`.
 
 The JAX tracker runs with the stereo observation count the port uses
 (`_jax_counts_stereo_twice`, ROADMAP C); in inertial modes it matters only
-between the 0.5 s keyframes after the IMU init.
+between the 0.5 s keyframes after the IMU init. The JAX mapper erases the
+VI-BA's outlier observations as the port does
+(`test_torch_vi_ba_outliers.jax_vi_ba_erases_outliers`, ROADMAP C10).
 
 Bounds: runs are compared by outcome (float32 LMs summing in another order
 than XLA): the IMU initialized at the same keyframe time, the same tracked
@@ -41,6 +43,7 @@ import pytest
 import torch
 
 from test_torch_stereo_slam import _jax_counts_stereo_twice
+from test_torch_vi_ba_outliers import jax_vi_ba_erases_outliers
 from orb_slam3_comments_ghr_tpu import system as jsystem
 from orb_slam3_comments_ghr_tpu.map import state as jstate
 from orb_slam3_comments_ghr_tpu.ops import cameras as jcameras
@@ -154,7 +157,7 @@ def _recorders(box: dict):
 @pytest.fixture(scope="module")
 def stereo_runs():
     box = {}
-    with _jax_counts_stereo_twice():
+    with _jax_counts_stereo_twice(), jax_vi_ba_erases_outliers():
         jax_run = run("jax", CFG, 41, N_FRAMES, 5100, True, hooks=_recorders(box))
     return run("torch", CFG, 41, N_FRAMES, 5100, True), jax_run, box
 
