@@ -1,7 +1,8 @@
 """Run the PyTorch port on a CUDA card: the window-match kernel against
 its plain version, the per-frame tracking program, monocular, stereo,
-RGB-D and visual-inertial SLAM end to end, loop closing, and the fisheye
-camera.
+RGB-D and visual-inertial SLAM end to end, loop closing, the fisheye
+camera, and the entry points users run (the CLI, atlas files, the
+distributed whole-map BA).
 
     python3 chip_smoke.py [--save-caller-inputs FILE]
 
@@ -63,10 +64,24 @@ frame's undistortion and pose held against the CPU port; (b) the
 non-rectified KB8 pair of tests/test_fisheye_stereo.py through
 `track_stereo_fisheye` from rendered images (right-camera rows in the map
 and in both BAs); (c) the same rig with the IMU rows of `vi_sequence(150)`
-at phase 7's configuration. Phases 4-12 each count the window match's
+at phase 7's configuration. Phase 13 runs the entry points users run: (a)
+the CLI (`io/run_slam.main`, mono, on the card) over phase 4's frames
+written as an EuRoC folder with a TUM ground-truth file; (b) the CLI on
+phase 5's rectified pairs with a v1.0 settings file; (c) phase 4's final
+map through `save_atlas` and `load_atlas` (bit for bit), then a second
+session that loads it as a new sub-map and tracks phase 4's first frames
+again; (d) the landmark-sharded BA of `parallel/dba.py` on two ranks of
+this script (`--dba-worker`) sharing the card over gloo, against the
+single-process BA; (e) the live whole-map BA (`SlamConfig(dba_devices=-1)`,
+`mapper.global_ba`) on those ranks on (c)'s atlas. Phases 4-13 each count
+the window match's
 launches from 0 (the loop closer's projection counts and fuses apart from
 the mapper's fuse) and record its arguments on one call of each caller;
-after them, phase 1 holds the kernel against the plain version on those calls
+phases 7-9, 10, 11 and 12 run in four processes of this
+script (`--phase-group`) beside the main one's phases 5, 6 and 13 (a)-(c),
+since every phase is bound by its host's launches and the card is idle
+most of the time; their output follows the main one's; after them, phase
+1 holds the kernel against the plain version on those calls
 and times it there (`--save-caller-inputs` also writes them to FILE for
 `orb_slam3_comments_ghr_torch/utils/time_window_match.py`). Any failure
 raises. The last lines are the card's name and power limit, a JSON line of
@@ -2206,16 +2221,6 @@ CHECK_FRAME_FISHEYE = 60  # the frame of (a) held on the card against the CPU po
 PHASE12_ROOM_SPAN = 80.0
 
 
-def tum_vi_cam0():
-    """TUM-VI's 512x512 KB8 cam0 (the JAX package's models/presets.py
-    `tum_vi`)."""
-    from orb_slam3_comments_ghr_torch.ops import cameras
-
-    return cameras.Camera(kind=cameras.KANNALA_BRANDT8, fx=190.978477, fy=190.973307,
-                          cx=254.931706, cy=256.897442, k1=0.003482389402, k2=0.000715034845,
-                          k3=-0.002053236141, k4=0.000202936736, width=512, height=512, fps=20.0)
-
-
 def fisheye_pair():
     """The non-rectified KB8 pair of tests/test_fisheye_stereo.py (752x480,
     an 11 cm baseline; the left camera's bf = fx * baseline for the depth
@@ -2267,12 +2272,13 @@ def phase12_mono_fisheye(wm_mod, device):
     (tests/test_fisheye.py), and the window match launched once per matcher
     call; then one frame's undistortion and pose against the CPU port.
     Returns (launches, calls, recorded arguments, results)."""
+    from orb_slam3_comments_ghr_torch.models import presets
     from orb_slam3_comments_ghr_torch.ops import cameras
     from orb_slam3_comments_ghr_torch.pipeline import programs
     from orb_slam3_comments_ghr_torch.system import SLAM
     from orb_slam3_comments_ghr_torch.utils import config, evaluation, gt_replay, synthetic
 
-    cam = tum_vi_cam0()
+    cam, cfg, _ = presets.tum_vi(config.MONOCULAR)
     n = PHASE12_MONO_FRAMES
     poses = synthetic.circular_trajectory(n)
     scene = gt_replay.make_room_scene(33, np.stack([camera_centre(R, t) for R, t in poses]),
@@ -2281,7 +2287,7 @@ def phase12_mono_fisheye(wm_mod, device):
     frames = render_all(lambda R, t: np.clip(np.round(gt_replay.render_room(scene, cam, R, t)),
                                              0, 255).astype(np.uint8), poses)
     print(f"phase12 (a) rendered {n} 512x512 KB8 frames in {time.perf_counter() - t0:.1f} s")
-    slam = SLAM(cam, config.SlamConfig(n_features=1024, max_frames_between_kf=20), device=device)
+    slam = SLAM(cam, cfg, device=device)
     calls = {"tracking": 0, "init": 0, "fuse": 0, "loop_count": 0, "loop_fuse": 0}
     recorded, kept = {}, {}
     restore = _count_loop_matchers(wm_mod, slam, calls, recorded, RECORD_AT_FISHEYE, "fisheye ")
@@ -2497,11 +2503,584 @@ def phase12_stereo_fisheye(wm_mod, device, inputs, inertial: bool):
                   "p75": float(np.percentile(frame_ms, 75)) if frame_ms else None})
 
 
+def phase_group_inertial(window_match, device, work):
+    """Phases 7-9: (paths, recorded arguments, results)."""
+    paths, recorded = {}, {}
+    t0 = time.perf_counter()
+    n, calls, rec, vi_stereo, vi_stages = phase7_stereo_inertial(window_match, device)
+    paths["stereo-inertial"] = dict(calls, launches=n)
+    recorded.update(rec)
+    print(f"phase7 passed in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    n, calls, vi_rgbd = phase8_rgbd_inertial(window_match, device)
+    paths["rgbd-inertial"] = dict(calls, launches=n)
+    print(f"phase8 passed in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    n, calls, vi_mono = phase9_mono_inertial(window_match, device)
+    paths["mono-inertial"] = dict(calls, launches=n)
+    print(f"phase9 passed in {time.perf_counter() - t0:.1f} s")
+    return paths, recorded, {"stereo-inertial": vi_stereo, "rgbd-inertial": vi_rgbd,
+                             "mono-inertial": vi_mono, "stages": vi_stages}
+
+
+def phase_group_loop(window_match, device, work):
+    """Phase 10, (d) on phase 4's map saved in WORK."""
+    paths, recorded, loop = {}, {}, {}
+    t0 = time.perf_counter()
+    n, calls, loop["feature_loop"] = phase10_feature_loop(window_match, device)
+    paths["feature loop"] = dict(calls, launches=n)
+    n, calls, loop["merge"] = phase10_merge(window_match, device)
+    paths["kidnap and merge"] = dict(calls, launches=n)
+    n, calls, rec, loop["image_loop"], loop["stages"] = phase10_image_loop(window_match, device)
+    paths["image loop"] = dict(calls, launches=n)
+    recorded.update(rec)
+    phase4_map = torch.load(os.path.join(work, "phase4_map.pt"), weights_only=False)
+    loop["global_ba"] = phase10_global_ba(phase4_map, device)
+    print(f"phase10 passed in {time.perf_counter() - t0:.1f} s")
+    return paths, recorded, loop
+
+
+def phase_group_inertial_loop(window_match, device, work):
+    """Phase 11."""
+    paths, recorded, loop = {}, {}, {}
+    t0 = time.perf_counter()
+    n, calls, rec, loop["inertial_loop"], snap = phase11_inertial_loop(window_match, device)
+    paths["stereo-inertial loop"] = dict(calls, launches=n)
+    recorded.update(rec)
+    n, calls, loop["inertial_merge"] = phase11_kidnap(window_match, device)
+    paths["inertial kidnap and merge"] = dict(calls, launches=n)
+    loop["full_inertial_ba"] = phase11_full_inertial_ba(snap, device)
+    print(f"phase11 passed in {time.perf_counter() - t0:.1f} s")
+    return paths, recorded, loop
+
+
+def phase_group_fisheye(window_match, device, work):
+    """Phase 12."""
+    paths, recorded, fisheye = {}, {}, {}
+    t0 = time.perf_counter()
+    n, calls, rec, fisheye["mono"] = phase12_mono_fisheye(window_match, device)
+    paths["mono fisheye"] = dict(calls, launches=n)
+    recorded.update(rec)
+    t1 = time.perf_counter()
+    inputs = fisheye_stereo_inputs(PHASE12_VI_FRAMES)
+    print(f"phase12 rendered {PHASE12_VI_FRAMES} KB8 stereo pairs in {time.perf_counter() - t1:.1f} s")
+    for key, inertial in (("stereo fisheye", False), ("stereo-inertial fisheye", True)):
+        n, calls, fisheye[key] = phase12_stereo_fisheye(window_match, device, inputs, inertial)
+        paths[key] = dict(calls, launches=n)
+    print(f"phase12 passed in {time.perf_counter() - t0:.1f} s")
+    return paths, recorded, fisheye
+
+
+# ------------------------------------------------------------------ phase 13
+# EuRoC-like timestamps of the CLI's dataset folders (nanoseconds in the files)
+PHASE13_T0 = 1403636579.0
+# the window-match calls of the CLI runs kept for phase 1: in (a) the 60th
+# tracking call and the last fuse, in (b) the 60th tracking call; in (c)'s
+# second session the loop closer's last projection count and first fuse,
+# where it makes them
+RECORD_AT_CLI = {"tracking": 60, "fuse": None}
+RECORD_AT_CLI_STEREO = {"tracking": 60}
+RECORD_AT_SESSION2 = {"loop_count": None, "loop_fuse": 1}
+# (c): the second session re-tracks phase 4's first frames, 100 s later
+PHASE13_SESSION2_FRAMES = 40
+PHASE13_SESSION2_CHECK = 25  # > 10 of these first frames must be tracked
+# (d): the problem of __graft_entry__.dryrun_multichip (64 keyframes, 16384
+# points, 8 observations each) on DBA_RANKS ranks sharing the card
+DBA_K, DBA_P, DBA_D = 64, 16384, 8
+DBA_ITERS = 10
+DBA_RANKS = 2
+ALLREDUCE_REPS = 20
+# (e): the live whole-map BA's iterations (tests/test_parallel.py)
+GBA_ITERS = 6
+WORKER_TIMEOUT_S = 600
+
+
+def scratch_dir() -> str:
+    """The checkout's git-ignored `build/` directory, for phase 13's files."""
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(d, exist_ok=True)
+    return d
+
+
+def euroc_stereo_yaml(path: str, cam) -> None:
+    """A v1.0 ORB-SLAM3 settings file of the rectified EuRoC rig: cam0's
+    intrinsics, the baseline as Stereo.b, the default ORB budget."""
+    rows = ['%YAML:1.0', 'File.version: "1.0"', 'Camera.type: "PinHole"',
+            *(f"Camera1.{k}: {getattr(cam, k)!r}" for k in ("fx", "fy", "cx", "cy")),
+            f"Camera.width: {cam.width}", f"Camera.height: {cam.height}",
+            f"Camera.fps: {cam.fps!r}", f"Stereo.b: {cam.bf / cam.fx!r}",
+            "ORBextractor.nFeatures: 1024", "ORBextractor.scaleFactor: 1.2",
+            "ORBextractor.nLevels: 8", "ORBextractor.iniThFAST: 20", "ORBextractor.minThFAST: 7"]
+    with open(path, "w") as f:
+        f.write("\n".join(rows) + "\n")
+
+
+def run_cli(wm_mod, argv, calls: dict, recorded: dict, record_at: dict, prefix: str):
+    """`io.run_slam.main(argv)` with the window match's callers counted (and
+    recorded as `_recording` says) on the SLAM it makes. Returns (its JSON
+    result, the SLAM, launches, peak device bytes, wall seconds)."""
+    import contextlib
+    import io
+
+    from orb_slam3_comments_ghr_torch import system
+    from orb_slam3_comments_ghr_torch.io import run_slam
+
+    made, restores = [], []
+    base = system.SLAM
+
+    class CountedSLAM(base):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+            restores.append(_count_loop_matchers(wm_mod, self, calls, recorded, record_at,
+                                                 prefix))
+
+    system.SLAM = CountedSLAM
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wm_mod.launches = 0
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            run_slam.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = wm_mod.launches
+    finally:
+        system.SLAM = base
+        for restore in restores:
+            restore()
+    if len(made) != 1:
+        raise AssertionError(f"the CLI made {len(made)} SLAM objects")
+    return (json.loads(buf.getvalue().strip().splitlines()[-1]), made[0], launches,
+            torch.cuda.max_memory_allocated(), wall)
+
+
+def init_frame(slam, t0: float, stereo: bool):
+    """The index (20 Hz from t0) of the frame that initialized the map: the
+    first keyframe's (stereo) or the second's (the current frame of the
+    two-view init), or None without them."""
+    kf = 0 if stereo else 1
+    if slam.map.n_kf <= kf:
+        return None
+    return int(round((slam.map.kf_time[kf] - t0) / 0.05))
+
+
+def phase13_cli(wm_mod, seq, right=None):
+    """(a) without `right`: `python -m orb_slam3_comments_ghr_torch.io.run_slam
+    --sensor mono` (through `run_slam.main`, on the card: no --device) over
+    phase 4's 120 frames written as an EuRoC folder (npy) with a TUM
+    ground-truth file. Fails unless the CLI reports 120 frames, >= 90 % of
+    the frames after the init tracked, >= 3 keyframes, > 200 points and a
+    Sim(3) ATE < 5 cm. (b) with `right` (phase 5's rectified right views as
+    cam1): `--sensor stereo --settings` a v1.0 settings file of the rig
+    (PyYAML reads it). Fails unless 120 frames, tracking from frame 0, >= 90
+    % tracked, Sim(3) ATE < 6 cm. Both: the window match launched once per
+    matcher call. Returns (launches, calls, recorded arguments, results)."""
+    import tempfile
+
+    from orb_slam3_comments_ghr_torch.io import config_yaml, datasets, native_loader
+    from orb_slam3_comments_ghr_torch.ops import cameras
+    from orb_slam3_comments_ghr_torch.utils import config, synthetic
+
+    frames, _, poses = seq
+    n = PHASE4_FRAMES
+    stereo = right is not None
+    tag = "phase13 (b) CLI stereo" if stereo else "phase13 (a) CLI mono"
+    prefix = "cli stereo " if stereo else "cli "
+    cam = cameras.euroc_cam0()
+    times = [PHASE13_T0 + i * 0.05 for i in range(n)]
+    calls = {"tracking": 0, "init": 0, "fuse": 0, "loop_count": 0, "loop_fuse": 0}
+    recorded = {}
+    with tempfile.TemporaryDirectory(prefix="phase13_", dir=scratch_dir()) as root:
+        t0 = time.perf_counter()
+        datasets.write_synthetic_euroc(root, list(frames[:n]), times,
+                                       images_right=list(right[:n]) if stereo else None)
+        gt = os.path.join(root, "groundtruth.txt")
+        synthetic.write_tum_groundtruth(gt, poses[:n], times)
+        write_s = time.perf_counter() - t0
+        argv = ["--dataset", "euroc", "--root", root, "--sensor", "stereo" if stereo else "mono",
+                "--out", os.path.join(root, "trajectory_tum.txt"), "--gt", gt]
+        if stereo:
+            settings = os.path.join(root, "EuRoC_stereo.yaml")
+            euroc_stereo_yaml(settings, cam)
+            loaded = config_yaml.load_settings(settings, sensor=config.STEREO)[0]
+            if (loaded.fx, loaded.fy, loaded.cx, loaded.cy) != (cam.fx, cam.fy, cam.cx, cam.cy) \
+                    or abs(loaded.bf - cam.bf) > 1e-9 * cam.bf:
+                raise AssertionError(f"{tag}: the settings file gave {loaded}, not {cam}")
+            argv += ["--settings", settings]
+        probe = native_loader.PrefetchLoader([os.path.join(root, "mav0", "cam0", "data",
+                                                           f"{int(times[0] * 1e9)}.npy")])
+        native = probe.native
+        probe.close()
+        res, slam, launches, peak, wall = run_cli(
+            wm_mod, argv, calls, recorded, RECORD_AT_CLI_STEREO if stereo else RECORD_AT_CLI,
+            prefix)
+        traj_lines = len(open(os.path.join(root, "trajectory_tum.txt")).read().splitlines())
+    init = init_frame(slam, PHASE13_T0, stereo)
+    print(f"{tag}: {json.dumps(res)}")
+    print(f"{tag}: wrote the folder in {write_s:.1f} s; native prefetcher {native}; "
+          f"initialized at frame {init}; {traj_lines} trajectory lines; {wall:.1f} s in main; "
+          f"max_memory_allocated {peak / 2**20:.1f} MiB; loops {slam.loopcloser.n_loops}, "
+          f"merges {slam.loopcloser.n_merges}")
+    _check_launches(tag, launches, calls)
+    if res["frames"] != n or init is None:
+        raise AssertionError(f"{tag}: {res['frames']} frames, initialized at frame {init}")
+    if stereo:
+        if init != 0 or res["tracked"] < 0.9 * n or not res["ate_rmse"] < 0.06:
+            raise AssertionError(f"{tag}: initialized at frame {init}, tracked {res['tracked']}, ATE "
+                                 f"{res['ate_rmse']} m (bars: 0, >= 90 %, < 6 cm)")
+        if calls["init"] != 0:
+            raise AssertionError(f"{tag}: the two-view init ran")
+    else:
+        after = n - 1 - init
+        if (res["tracked"] - 1 < 0.9 * after or res["keyframes"] < 3
+                or res["map_points"] <= 200 or not res["ate_rmse"] < 0.05):
+            raise AssertionError(f"{tag}: tracked {res['tracked'] - 1} of {after} after the "
+                                 f"init, {res['keyframes']} keyframes, {res['map_points']} "
+                                 f"points, ATE {res['ate_rmse']} m (bars: >= 90 %, >= 3, > 200, "
+                                 "< 5 cm)")
+        if calls["init"] == 0 or calls["fuse"] == 0:
+            raise AssertionError(f"{tag}: the init or the fuse path never ran")
+    return launches, calls, recorded, dict(res, init_frame=init, native_prefetcher=native,
+                                           peak_mib=peak / 2**20, main_s=wall)
+
+
+ATLAS_COUNTERS = ("n_kf", "n_mp", "active_map", "n_maps", "version", "_mp_free", "map_imu_init",
+                  "map_viba1", "map_viba2", "rig")
+
+
+def phase13_save_atlas(slam, root: str, device) -> dict:
+    """(c), first half, on phase 4's final SLAM: `save_atlas`, then
+    `load_atlas(new_session=False)` into a new SLAM of phase 4's
+    configuration. Fails unless every array of the file and every counter
+    comes back bit for bit. Also writes the atlas of a copy of the map with
+    phase 10 (d)'s seeded noise (`_perturb`), for (e). Returns the files'
+    paths, the first one's bytes, the save and load ms, and session 1's
+    keyframes."""
+    from orb_slam3_comments_ghr_torch import convert
+    from orb_slam3_comments_ghr_torch.map import persistence
+    from orb_slam3_comments_ghr_torch.ops import cameras
+    from orb_slam3_comments_ghr_torch.system import SLAM
+    from orb_slam3_comments_ghr_torch.utils.config import SlamConfig
+
+    path = os.path.join(root, "phase4_atlas.npz")
+    save_ms = host_ms(lambda: slam.save_atlas(path))
+    read_ms = host_ms(lambda: persistence.load_atlas(path, voc=slam.voc))
+    fresh = SLAM(cameras.euroc_cam0(), SlamConfig(enable_loop_closing=False), device=device)
+    load_ms = host_ms(lambda: fresh.load_atlas(path, new_session=False))
+    for k in persistence._ARRAYS:
+        a, b = getattr(fresh.map, k), getattr(slam.map, k)
+        if a.dtype != b.dtype or not np.array_equal(a, b):
+            raise AssertionError(f"phase13 (c): {k} differs after the round trip")
+    for k in ATLAS_COUNTERS:
+        if getattr(fresh.map, k) != getattr(slam.map, k):
+            raise AssertionError(f"phase13 (c): the counter {k} differs after the round trip")
+    noisy = os.path.join(root, "phase4_atlas_perturbed.npz")
+    persistence.save_atlas(convert.map_state_from_numpy(_perturb(convert.map_state_to_numpy(
+        slam.map))), noisy, voc=slam.voc)
+    out = dict(path=path, perturbed_path=noisy, bytes=os.path.getsize(path), save_ms=save_ms,
+               read_ms=read_ms, load_ms=load_ms, keyframes=slam.n_keyframes(),
+               points=slam.n_map_points(), maps=slam.map.n_maps)
+    print(f"phase13 (c) atlas of phase 4's final map ({out['keyframes']} keyframes, "
+          f"{out['points']} points, {out['maps']} maps): {out['bytes']} bytes; save_atlas "
+          f"{save_ms:.1f} ms, persistence.load_atlas {read_ms:.1f} ms, SLAM.load_atlas "
+          f"(new_session=False; the database refilled) {load_ms:.1f} ms; every array and "
+          "counter bit-equal")
+    return out
+
+
+def phase13_second_session(wm_mod, seq, atlas: dict, device):
+    """(c), second half: a new SLAM (the default configuration: loop
+    closing on) loads the atlas with new_session=True and tracks phase 4's
+    frames 0..PHASE13_SESSION2_FRAMES-1 again, 100 s later, through
+    `track_monocular`. Fails unless the new sub-map is the active one after
+    the load, > 10 of the first 25 frames are tracked, session 1's
+    keyframes are all still valid, and the window match launched once per
+    matcher call. Returns (launches, calls, recorded arguments, results)."""
+    from orb_slam3_comments_ghr_torch.ops import cameras
+    from orb_slam3_comments_ghr_torch.system import SLAM
+
+    frames = seq[0]
+    slam = SLAM(cameras.euroc_cam0(), device=device)
+    slam.load_atlas(atlas["path"], new_session=True)
+    active_after_load = slam.map.active_map
+    loaded = slam.map.kf_ids(0)
+    calls = {"tracking": 0, "init": 0, "fuse": 0, "loop_count": 0, "loop_fuse": 0}
+    recorded = {}
+    restore = _count_loop_matchers(wm_mod, slam, calls, recorded, RECORD_AT_SESSION2, "atlas ")
+    torch.cuda.synchronize()
+    wm_mod.launches = 0
+    try:
+        tracked = [slam.track_monocular(frames[i], 100.0 + i * 0.05) is not None
+                   for i in range(PHASE13_SESSION2_FRAMES)]
+        torch.cuda.synchronize()
+        launches = wm_mod.launches
+    finally:
+        restore()
+    lc = slam.loopcloser
+    still_valid = int(slam.map.kf_valid[loaded].sum())
+    first = sum(tracked[:PHASE13_SESSION2_CHECK])
+    out = dict(active_after_load=int(active_after_load), tracked=sum(tracked),
+               tracked_first=first, session1_keyframes=len(loaded),
+               session1_still_valid=still_valid, active_map_keyframes=slam.n_keyframes(),
+               maps=slam.map.n_maps, active_map=int(slam.map.active_map), merges=lc.n_merges,
+               loops=lc.n_loops, into_map0=bool(lc.n_merges or slam.map.active_map == 0))
+    print(f"phase13 (c) second session: active map {active_after_load} after the load; tracked "
+          f"{first}/{PHASE13_SESSION2_CHECK} of the first frames, {sum(tracked)}/"
+          f"{PHASE13_SESSION2_FRAMES} in all; session 1's keyframes still valid {still_valid}/"
+          f"{len(loaded)}; merges {lc.n_merges}, loops {lc.n_loops}, active map "
+          f"{slam.map.active_map} of {slam.map.n_maps}: "
+          + ("merged or relocalized into map 0" if out["into_map0"] else
+             "tracking went on in the new sub-map"))
+    _check_launches("phase13 (c) second session", launches, calls)
+    if active_after_load != 1 or first <= 10 or still_valid < len(loaded):
+        raise AssertionError("phase13 (c): the new sub-map is not active after the load, <= 10 "
+                             "of the first frames tracked, or a loaded keyframe was lost")
+    return launches, calls, recorded, out
+
+
+def dryrun_problem(seed: int = 0) -> dict:
+    """The whole-map BA problem of __graft_entry__.dryrun_multichip, drawn
+    with numpy from `seed`: DBA_K keyframes on a 4 m line, DBA_P points 6-12
+    m out, each seen by a contiguous window of DBA_D cameras from a random
+    start, noise-free pixels, the points 1 cm off, the first keyframe
+    fixed. Returns the BAProblem's arrays."""
+    from orb_slam3_comments_ghr_torch.ops import cameras
+
+    cam = cameras.euroc_cam0()
+    rng = np.random.default_rng(seed)
+    K, P, D = DBA_K, DBA_P, DBA_D
+    uv = (rng.uniform(size=(P, 2)) * np.array([700.0, 440.0]) + 20.0).astype(np.float32)
+    rays = cameras.unproject(cam, torch.from_numpy(uv)).numpy()
+    pts = (rays * (rng.uniform(size=(P, 1)) * 6 + 6)).astype(np.float32)
+    cam_t = -np.stack([np.linspace(-2.0, 2.0, K), np.zeros(K), np.zeros(K)], -1).astype(np.float32)
+    obs_cam = (rng.integers(0, K - D, size=P)[:, None] + np.arange(D)[None]).astype(np.int32)
+    pc = torch.from_numpy(pts[:, None, :] + cam_t[obs_cam])  # R = I
+    uv_obs = cameras.project(cam, pc)
+    valid = cameras.in_image(cam, uv_obs, 2.0) & (pc[..., 2] > 0.5)
+    return dict(cam_R=np.tile(np.eye(3, dtype=np.float32), (K, 1, 1)), cam_t=cam_t,
+                cam_fixed=np.arange(K) < 1, p=pts + np.float32(0.01), p_valid=np.ones(P, bool),
+                obs_cam=obs_cam, obs_uv=uv_obs.numpy(), obs_ur=np.full((P, D), -1.0, np.float32),
+                obs_level=np.zeros((P, D), np.int32), obs_valid=valid.numpy())
+
+
+def dba_worker(rank: int, port: int, atlases, device="cuda") -> int:
+    """One rank of phase 13 (d) and (e) (`--dba-worker RANK`): the world of
+    DBA_RANKS ranks on this card through `parallel.distributed.initialize`
+    (gloo: they share the card); (d) the sharded BA of `dryrun_problem`,
+    timed per LM iteration, and the camera system's all_reduce alone; (e)
+    for each atlas (phase 4's map, its perturbed copy) a SLAM with
+    dba_devices=-1 loads it and runs `mapper.global_ba` with a spy on the
+    sharded BA. Writes its results beside the first atlas."""
+    import torch.distributed as dist
+
+    from orb_slam3_comments_ghr_torch import convert
+    from orb_slam3_comments_ghr_torch.ops import cameras
+    from orb_slam3_comments_ghr_torch.parallel import dba, distributed
+    from orb_slam3_comments_ghr_torch.system import SLAM
+    from orb_slam3_comments_ghr_torch.utils.config import SlamConfig
+
+    if not distributed.initialize(f"127.0.0.1:{port}", DBA_RANKS, rank, device=device):
+        raise AssertionError("distributed.initialize did not form the world")
+    info = distributed.process_info()
+    mesh = distributed.global_mesh()
+    cam = cameras.euroc_cam0()
+    local = dba.shard_problem(convert.ba_problem_from_numpy(dryrun_problem(), device=device),
+                              mesh)
+    dba.bundle_adjust_sharded(cam, local, mesh, iters=1)  # warm-up
+    dist.barrier()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    R, t, _, _, cost, _ = dba.bundle_adjust_sharded(cam, local, mesh, iters=DBA_ITERS)
+    torch.cuda.synchronize()
+    iter_ms = (time.perf_counter() - t0) * 1e3 / DBA_ITERS
+    peak = torch.cuda.max_memory_allocated()
+    flat = torch.zeros(36 * DBA_K * DBA_K + 12 * DBA_K + 1, device=device)
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ALLREDUCE_REPS):
+        dist.all_reduce(flat)
+    torch.cuda.synchronize()
+    allreduce_ms = (time.perf_counter() - t0) * 1e3 / ALLREDUCE_REPS
+
+    live = {}
+    sharded = dba.bundle_adjust_sharded
+    for key, path in zip(("final", "perturbed"), atlases):
+        slam = SLAM(cam, SlamConfig(dba_devices=-1), device=device)
+        slam.load_atlas(path, new_session=False)
+        calls = []
+
+        def spy(*args, **kwargs):
+            calls.append(1)
+            return sharded(*args, **kwargs)
+
+        dba.bundle_adjust_sharded = spy
+        try:
+            live[f"{key}_ms"] = host_ms(lambda: slam.mapper.global_ba(iters=GBA_ITERS))
+        finally:
+            dba.bundle_adjust_sharded = sharded
+        kfs = slam.map.kf_ids()
+        live.update({f"{key}_calls": len(calls), f"{key}_kfs": kfs,
+                     f"{key}_kf_R": slam.map.kf_R[kfs], f"{key}_kf_t": slam.map.kf_t[kfs],
+                     f"{key}_mp_pos": slam.map.mp_pos[slam.map.mp_ids()]})
+    np.savez(os.path.join(os.path.dirname(atlases[0]), f"dba_rank{rank}.npz"),
+             R=R.cpu().numpy(), t=t.cpu().numpy(), cost=cost.item(), iter_ms=iter_ms,
+             allreduce_ms=allreduce_ms, allreduce_bytes=flat.numel() * 4, peak_mib=peak / 2**20,
+             backend=str(info["backend"]), world=info["process_count"], **live)
+    dist.destroy_process_group()
+    return 0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase13_distributed(atlas: dict, device) -> dict:
+    """(d) and (e): DBA_RANKS ranks of this script (`--dba-worker`) on the
+    one card over gloo. (d) fails unless the ranks' cameras are the same
+    bits, the backend is gloo, and against a single-process
+    `ba.bundle_adjust` of the same problem on the card the rotations agree
+    within 5e-4, the translations within 5e-3 and the cost within 5 %
+    (tests/test_parallel.py), with a finite cost below the start. (e) fails
+    unless, on both atlases (phase 4's map, where the BA may find nothing
+    to move, and its perturbed copy), every rank's `global_ba` went through
+    the sharded BA, the ranks' keyframe poses and points are the same bits,
+    and they are within 5e-3 of a single-process `global_ba` on the same
+    atlas. Returns the times, bytes and peak memory of each rank and of the
+    single process."""
+    from orb_slam3_comments_ghr_torch import convert
+    from orb_slam3_comments_ghr_torch.ops import cameras
+    from orb_slam3_comments_ghr_torch.optim import ba
+    from orb_slam3_comments_ghr_torch.system import SLAM
+
+    root = os.path.dirname(atlas["path"])
+    port = free_port()
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    try:
+        for rank in range(DBA_RANKS):
+            logs.append(open(os.path.join(root, f"dba_rank{rank}.log"), "w"))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--dba-worker", str(rank),
+                 "--dba-port", str(port), "--atlas", atlas["path"], atlas["perturbed_path"]],
+                stdout=logs[-1], stderr=subprocess.STDOUT))
+        for rank, p in enumerate(procs):
+            rc = p.wait(timeout=WORKER_TIMEOUT_S)
+            if rc != 0:
+                with open(os.path.join(root, f"dba_rank{rank}.log")) as f:
+                    raise AssertionError(f"phase13 (d) rank {rank} exited {rc}:\n"
+                                         f"{f.read()[-4000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    workers_s = time.perf_counter() - t0
+    ranks = [dict(np.load(os.path.join(root, f"dba_rank{r}.npz"))) for r in range(DBA_RANKS)]
+
+    cam = cameras.euroc_cam0()
+    prob = convert.ba_problem_from_numpy(dryrun_problem(), device=device)
+    chi2, delta2 = ba._obs_terms(cam, prob, prob.cam_R, prob.cam_t, prob.p, False)[4::2]
+    cost_start = ba._cost(chi2, delta2, prob.obs_valid, False).item()
+    ba.bundle_adjust(cam, prob, iters=1)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    box = {}
+    single_ms = host_ms(lambda: box.update(out=ba.bundle_adjust(cam, prob, iters=DBA_ITERS)))
+    R1, t1, _, _, c1 = box["out"]
+    single_peak = torch.cuda.max_memory_allocated()
+    R1, t1, c1 = R1.cpu().numpy(), t1.cpu().numpy(), c1.item()
+    r0 = ranks[0]
+    dR, dt = float(np.abs(r0["R"] - R1).max()), float(np.abs(r0["t"] - t1).max())
+    dcost = abs(float(r0["cost"]) - c1) / max(c1, 1.0)
+    same = all(np.array_equal(r["R"], r0["R"]) and np.array_equal(r["t"], r0["t"])
+               for r in ranks[1:])
+    print(f"phase13 (d) sharded BA of the dryrun problem ({DBA_K} keyframes, {DBA_P} points, "
+          f"{DBA_D} observations each), {DBA_RANKS} ranks on one card, backend "
+          f"{', '.join(str(r['backend']) for r in ranks)}: ms per LM iteration per rank "
+          + ", ".join(f"{float(r['iter_ms']):.3f}" for r in ranks)
+          + f" (single process {single_ms / DBA_ITERS:.3f}); the camera system's all_reduce "
+          f"{int(r0['allreduce_bytes'])} bytes, ms "
+          + ", ".join(f"{float(r['allreduce_ms']):.3f}" for r in ranks)
+          + "; max_memory_allocated MiB per rank "
+          + ", ".join(f"{float(r['peak_mib']):.1f}" for r in ranks)
+          + f" (single process {single_peak / 2**20:.1f}); cost {cost_start:.4f} -> "
+          f"{float(r0['cost']):.4f} (single process {c1:.4f}); against the single process "
+          f"|dR| {dR:.2e}, |dt| {dt:.2e}, cost {100 * dcost:.3f} %; cameras bit-equal across "
+          f"ranks {same}; workers {workers_s:.1f} s")
+    if any(str(r["backend"]) != "gloo" or int(r["world"]) != DBA_RANKS for r in ranks):
+        raise AssertionError("phase13 (d): the ranks did not form a gloo world of "
+                             f"{DBA_RANKS}")
+    if not same or dR > 5e-4 or dt > 5e-3 or dcost >= 0.05:
+        raise AssertionError("phase13 (d): the ranks' cameras differ, or the sharded BA is off "
+                             "the single-process one (bars 5e-4, 5e-3, 5 %)")
+    if not (np.isfinite(float(r0["cost"])) and float(r0["cost"]) < cost_start):
+        raise AssertionError("phase13 (d): the cost is not finite or did not drop")
+
+    live = {}
+    for key in ("final", "perturbed"):
+        single = SLAM(cam, device=device)
+        single.load_atlas(atlas["path" if key == "final" else "perturbed_path"],
+                          new_session=False)
+        kfs = single.map.kf_ids()
+        t_before = single.map.kf_t[kfs].copy()
+        single.mapper.global_ba(iters=GBA_ITERS)
+        R_k, t_k = single.map.kf_R[kfs], single.map.kf_t[kfs]
+        gR = float(np.abs(R_k - r0[f"{key}_kf_R"]).max())
+        gt = float(np.abs(t_k - r0[f"{key}_kf_t"]).max())
+        moved = float(np.abs(t_k - t_before).max())
+        same_live = all(np.array_equal(r[f"{key}_{k}"], r0[f"{key}_{k}"]) for r in ranks[1:]
+                        for k in ("kfs", "kf_R", "kf_t", "mp_pos"))
+        calls = [int(r[f"{key}_calls"]) for r in ranks]
+        print(f"phase13 (e) global_ba(iters={GBA_ITERS}) with dba_devices=-1 on the atlas of phase "
+              f"4's {key} map: sharded BA calls per rank {calls}, host ms per rank "
+              + ", ".join(f"{float(r[f'{key}_ms']):.1f}" for r in ranks)
+              + f"; keyframes moved up to {moved:.2e} m; keyframe poses and points bit-equal "
+              f"across ranks {same_live}; against the single-process global_ba |dR| {gR:.2e}, "
+              f"|dt| {gt:.2e}")
+        if min(calls) < 1 or not same_live:
+            raise AssertionError(f"phase13 (e) {key}: a rank's global_ba did not shard, or the "
+                                 "ranks' maps differ")
+        if not np.array_equal(kfs, r0[f"{key}_kfs"]) or gR > 5e-3 or gt > 5e-3:
+            raise AssertionError(f"phase13 (e) {key}: the sharded global_ba is more than 5e-3 "
+                                 "off the single-process one")
+        live[key] = dict(calls=calls, host_ms=[float(r[f"{key}_ms"]) for r in ranks],
+                         moved_m=moved, max_dR=gR, max_dt=gt, keyframes=len(kfs))
+    return dict(
+        dba=dict(ranks=DBA_RANKS, backend=str(r0["backend"]),
+                 iter_ms=[float(r["iter_ms"]) for r in ranks], single_iter_ms=single_ms / DBA_ITERS,
+                 allreduce_ms=[float(r["allreduce_ms"]) for r in ranks],
+                 allreduce_bytes=int(r0["allreduce_bytes"]),
+                 peak_mib=[float(r["peak_mib"]) for r in ranks],
+                 single_peak_mib=single_peak / 2**20, cost_start=cost_start,
+                 cost=float(r0["cost"]), single_cost=c1, max_dR=dR, max_dt=dt,
+                 workers_s=workers_s),
+        live=live)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Run the PyTorch port on a CUDA card.")
     ap.add_argument("--save-caller-inputs", metavar="FILE",
                     help="also write the window-match arguments recorded in phase 4 to FILE "
                          "(torch.save, CPU tensors) for utils/time_window_match.py")
+    ap.add_argument("--dba-worker", type=int, metavar="RANK",
+                    help="run one rank of phase 13 (d) and (e) (started by phase 13)")
+    ap.add_argument("--dba-port", type=int, help="rank 0's TCP port (with --dba-worker)")
+    ap.add_argument("--atlas", nargs=2, help="phase 13 (c)'s atlas files, phase 4's map and "
+                    "its perturbed copy (with --dba-worker)")
+    ap.add_argument("--phase-group", choices=tuple(CHILD_GROUPS),
+                    help="run one group of phases 7-12 (started by the main run)")
+    ap.add_argument("--work", help="the main run's working directory (with --phase-group)")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card; torch.cuda.is_available() is False")
@@ -2509,7 +3088,85 @@ def main(argv=None) -> int:
         from orb_slam3_comments_ghr_torch.ops import matching, window_match
     except ModuleNotFoundError as e:
         raise SystemExit(f"chip_smoke.py runs from the root of a checkout of the repo: {e}")
+    if opts.dba_worker is not None:
+        return dba_worker(opts.dba_worker, opts.dba_port, opts.atlas)
+    if opts.phase_group is not None:
+        return run_group(opts.phase_group, opts.work)
+    import tempfile
 
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=scratch_dir()) as work:
+        return run_phases(opts, matching, window_match, work)
+
+
+# phases 7-12 run in processes of their own, one per group, beside the main
+# process's phases 5, 6 and 13 (a)-(c): every phase is bound by its host's
+# Python and launches (the card is idle most of the time), so on the
+# machine's cores the groups take about the time of the longest, not the sum
+CHILD_GROUPS = {"7-9": phase_group_inertial, "10": phase_group_loop,
+                "11": phase_group_inertial_loop, "12": phase_group_fisheye}
+GROUP_TIMEOUT_S = 1100
+
+
+def start_groups(work: str) -> dict:
+    """Start one process of this script per CHILD_GROUPS entry
+    (`--phase-group NAME --work DIR`), its output to DIR/group_NAME.log."""
+    children = {}
+    for name in CHILD_GROUPS:
+        log = open(os.path.join(work, f"group_{name}.log"), "w")
+        children[name] = (subprocess.Popen(
+            [sys.executable, "-u", os.path.abspath(__file__), "--phase-group", name, "--work",
+             work],
+            stdout=log, stderr=subprocess.STDOUT), log, time.perf_counter())
+    return children
+
+
+def join_groups(children: dict, work: str) -> dict:
+    """Wait for the group processes, print each one's output, and return
+    what each saved ({name: {"paths", "recorded", "results"}}); fails, with
+    every process stopped, when one did not exit 0."""
+    out = {}
+    try:
+        for name, (proc, log, t0) in children.items():
+            rc = proc.wait(timeout=max(1.0, GROUP_TIMEOUT_S - (time.perf_counter() - t0)))
+            log.close()
+            with open(os.path.join(work, f"group_{name}.log")) as f:
+                print(f"--- phases {name}, a process of their own ({time.perf_counter() - t0:.1f} "
+                      "s from its start):")
+                print(f.read().rstrip())
+            if rc != 0:
+                raise AssertionError(f"phases {name} exited {rc}")
+            out[name] = torch.load(os.path.join(work, f"group_{name}.pt"), weights_only=False)
+    finally:
+        stop_groups(children)
+    return out
+
+
+def stop_groups(children: dict) -> None:
+    """Stop the group processes still running and close their logs."""
+    for proc, log, _ in children.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+
+
+def run_group(name: str, work: str) -> int:
+    """One CHILD_GROUPS entry in this process (`--phase-group NAME`): its
+    phases with their counts, checks and prints as the main process runs
+    the others; saves (paths, recorded window-match arguments on the CPU,
+    results) to WORK/group_NAME.pt."""
+    from orb_slam3_comments_ghr_torch.ops import window_match
+
+    window_match.build()  # built by the main process already: a cache hit
+    paths, recorded, results = CHILD_GROUPS[name](window_match, torch.device("cuda", 0), work)
+    torch.save({"paths": paths, "recorded": {k: tuple(a.cpu() for a in v)
+                                             for k, v in recorded.items()},
+                "results": results}, os.path.join(work, f"group_{name}.pt"))
+    return 0
+
+
+def run_phases(opts, matching, window_match, work: str) -> int:
+    """Phases 1-13 in order; `work` holds phase 13's files."""
     card = card_line()
     print(card)
     device = torch.device("cuda", 0)
@@ -2534,115 +3191,102 @@ def main(argv=None) -> int:
     print(f"phase4 passed in {time.perf_counter() - t0:.1f} s")
     from orb_slam3_comments_ghr_torch import convert
 
-    phase4_map = convert.map_state_to_numpy(slam.map)  # for phase 10's whole-map BA
+    # phase 10's whole-map BA runs on phase 4's map, in a process of its own
+    torch.save(convert.map_state_to_numpy(slam.map), os.path.join(work, "phase4_map.pt"))
+    atlas = phase13_save_atlas(slam, work, device)  # phase 13 (c) goes on from it
     del slam
-
-    t0 = time.perf_counter()
-    right, depth = second_inputs(seq, "stereo"), second_inputs(seq, "rgbd")
-    print(f"rendered {PHASE5_FRAMES} right views and depth maps in {time.perf_counter() - t0:.1f} s")
-    stages, depth_frame_ms = {}, {}
-    for mode, second in (("stereo", right), ("rgbd", depth)):
+    children = start_groups(work)
+    try:  # phases 5, 6 and 13 (a)-(c) beside the group processes
         t0 = time.perf_counter()
-        n, calls, rec, slam, depth_frame_ms[mode] = phase_depth_slam(window_match, seq, second, mode)
-        paths[mode] = dict(calls, launches=n)
+        right, depth = second_inputs(seq, "stereo"), second_inputs(seq, "rgbd")
+        print(f"rendered {PHASE5_FRAMES} right views and depth maps in "
+              f"{time.perf_counter() - t0:.1f} s")
+        stages, depth_frame_ms = {}, {}
+        for mode, second in (("stereo", right), ("rgbd", depth)):
+            t0 = time.perf_counter()
+            n, calls, rec, slam, depth_frame_ms[mode] = phase_depth_slam(window_match, seq,
+                                                                         second, mode)
+            paths[mode] = dict(calls, launches=n)
+            recorded.update(rec)
+            if mode == "stereo":
+                stages.update(depth_stages_against_cpu(device, seq, right, depth, slam))
+            else:
+                stages.update(rectify_clahe_against_cpu(device, seq, right))
+            print(f"phase{5 if mode == 'stereo' else 6} passed in {time.perf_counter() - t0:.1f} s")
+        del slam
+
+        t0 = time.perf_counter()
+        entry = {}
+        for key, second in (("cli mono", None), ("cli stereo", right)):
+            n, calls, rec, entry[key] = phase13_cli(window_match, seq, second)
+            paths[key] = dict(calls, launches=n)
+            recorded.update(rec)
+        n, calls, rec, entry["atlas"] = phase13_second_session(window_match, seq, atlas, device)
+        paths["atlas second session"] = dict(calls, launches=n)
         recorded.update(rec)
-        if mode == "stereo":
-            stages.update(depth_stages_against_cpu(device, seq, right, depth, slam))
-        else:
-            stages.update(rectify_clahe_against_cpu(device, seq, right))
-        print(f"phase{5 if mode == 'stereo' else 6} passed in {time.perf_counter() - t0:.1f} s")
-    del slam
+        entry["atlas"]["file"] = {k: v for k, v in atlas.items() if not k.endswith("path")}
+        print(f"phase13 (a)-(c) passed in {time.perf_counter() - t0:.1f} s")
+        results = join_groups(children, work)
+        for name in CHILD_GROUPS:
+            paths.update(results[name]["paths"])
+            recorded.update(results[name]["recorded"])
+        inertial_results = results["7-9"]["results"]
+        vi_stereo = inertial_results["stereo-inertial"]
+        v = depth_frame_ms["stereo"]
+        print(f"phase7 per-frame ms without a keyframe (median / p75), this call: track_stereo "
+              f"(phase 5) {np.median(v):.3f} / {np.percentile(v, 75):.3f}; stereo-inertial "
+              f"before the "
+              f"IMU init {vi_stereo['frames']['before_imu_init']['median_ms']:.3f} / "
+              f"{vi_stereo['frames']['before_imu_init']['p75_ms']:.3f}, IMU-ready "
+              f"{vi_stereo['frames']['imu_ready']['median_ms']:.3f} / "
+              f"{vi_stereo['frames']['imu_ready']['p75_ms']:.3f} (phases 5 and 7 ran beside other "
+              "phases' processes)")
+        t0 = time.perf_counter()
+        entry.update(phase13_distributed(atlas, device))
+        print(f"phase13 (d), (e) passed in {time.perf_counter() - t0:.1f} s")
+        if opts.save_caller_inputs:
+            torch.save({k: tuple(a.cpu() for a in v) for k, v in recorded.items()},
+                       opts.save_caller_inputs)
+        err, callers = phase1_callers(window_match, matching, recorded, device,
+                                      [*RECORD_AT, *(f"{m} {c}" for m in ("stereo", "rgbd")
+                                                     for c in RECORD_AT_DEPTH),
+                                       *(f"stereo-inertial {c}" for c in RECORD_AT_VI),
+                                       *RECORD_AT_LOOP,
+                                       *(f"inertial {c}" for c in RECORD_AT_INERTIAL_LOOP),
+                                       *(f"fisheye {c}" for c in RECORD_AT_FISHEYE),
+                                       *(f"cli {c}" for c in RECORD_AT_CLI),
+                                       *(f"cli stereo {c}" for c in RECORD_AT_CLI_STEREO),
+                                       *(f"atlas {c}" for c in RECORD_AT_SESSION2
+                                         if f"atlas {c}" in recorded)])
+        max_err = max(max_err, err)
+        print("phase1 on the recorded caller inputs passed")
 
-    t0 = time.perf_counter()
-    n, calls, rec, vi_stereo, vi_stages = phase7_stereo_inertial(window_match, device)
-    paths["stereo-inertial"] = dict(calls, launches=n)
-    recorded.update(rec)
-    v = depth_frame_ms["stereo"]
-    print(f"phase7 per-frame ms without a keyframe (median / p75), this call: track_stereo "
-          f"(phase 5) {np.median(v):.3f} / {np.percentile(v, 75):.3f}; stereo-inertial before the "
-          f"IMU init {vi_stereo['frames']['before_imu_init']['median_ms']:.3f} / "
-          f"{vi_stereo['frames']['before_imu_init']['p75_ms']:.3f}, IMU-ready "
-          f"{vi_stereo['frames']['imu_ready']['median_ms']:.3f} / "
-          f"{vi_stereo['frames']['imu_ready']['p75_ms']:.3f}")
-    print(f"phase7 passed in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    n, calls, vi_rgbd = phase8_rgbd_inertial(window_match, device)
-    paths["rgbd-inertial"] = dict(calls, launches=n)
-    print(f"phase8 passed in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    n, calls, vi_mono = phase9_mono_inertial(window_match, device)
-    paths["mono-inertial"] = dict(calls, launches=n)
-    print(f"phase9 passed in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    loop = {}
-    n, calls, loop["feature_loop"] = phase10_feature_loop(window_match, device)
-    paths["feature loop"] = dict(calls, launches=n)
-    n, calls, loop["merge"] = phase10_merge(window_match, device)
-    paths["kidnap and merge"] = dict(calls, launches=n)
-    n, calls, rec, loop["image_loop"], loop["stages"] = phase10_image_loop(window_match, device)
-    paths["image loop"] = dict(calls, launches=n)
-    recorded.update(rec)
-    loop["global_ba"] = phase10_global_ba(phase4_map, device)
-    print(f"phase10 passed in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    n, calls, rec, loop["inertial_loop"], snap = phase11_inertial_loop(window_match, device)
-    paths["stereo-inertial loop"] = dict(calls, launches=n)
-    recorded.update(rec)
-    n, calls, loop["inertial_merge"] = phase11_kidnap(window_match, device)
-    paths["inertial kidnap and merge"] = dict(calls, launches=n)
-    loop["full_inertial_ba"] = phase11_full_inertial_ba(snap, device)
-    del snap
-    print(f"phase11 passed in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    fisheye = {}
-    n, calls, rec, fisheye["mono"] = phase12_mono_fisheye(window_match, device)
-    paths["mono fisheye"] = dict(calls, launches=n)
-    recorded.update(rec)
-    t1 = time.perf_counter()
-    inputs = fisheye_stereo_inputs(PHASE12_VI_FRAMES)
-    print(f"phase12 rendered {PHASE12_VI_FRAMES} KB8 stereo pairs in {time.perf_counter() - t1:.1f} s")
-    for key, inertial in (("stereo fisheye", False), ("stereo-inertial fisheye", True)):
-        n, calls, fisheye[key] = phase12_stereo_fisheye(window_match, device, inputs, inertial)
-        paths[key] = dict(calls, launches=n)
-    del inputs
-    print(f"phase12 passed in {time.perf_counter() - t0:.1f} s")
-    if opts.save_caller_inputs:
-        torch.save({k: tuple(a.cpu() for a in v) for k, v in recorded.items()},
-                   opts.save_caller_inputs)
-    err, callers = phase1_callers(window_match, matching, recorded, device,
-                                  [*RECORD_AT, *(f"{m} {c}" for m in ("stereo", "rgbd")
-                                                 for c in RECORD_AT_DEPTH),
-                                   *(f"stereo-inertial {c}" for c in RECORD_AT_VI),
-                                   *RECORD_AT_LOOP,
-                                   *(f"inertial {c}" for c in RECORD_AT_INERTIAL_LOOP),
-                                   *(f"fisheye {c}" for c in RECORD_AT_FISHEYE)])
-    max_err = max(max_err, err)
-    print("phase1 on the recorded caller inputs passed")
-
-    track = callers["tracking"]
-    print(card)
-    print(json.dumps({"kernels": [{
-        "name": "window_match", "route": "cuda",
-        "source": "orb_slam3_comments_ghr_torch/csrc/window_match.cu",
-        "replaces": "orb_slam3_comments_ghr_tpu/ops/pallas_match.py:88",
-        # launches over the main runs of phases 4-12, each counted from 0
-        "launches": sum(paths[p]["launches"] for p in (
-            "mono", "stereo", "rgbd", "stereo-inertial", "rgbd-inertial", "mono-inertial",
-            "feature loop", "kidnap and merge", "image loop", "stereo-inertial loop",
-            "inertial kidnap and merge", "mono fisheye", "stereo fisheye",
-            "stereo-inertial fisheye")),
-        "max_abs_err": max_err,
-        # device time per launch on the recorded mono tracking call (CUDA graph)
-        "ms": track["device_ms"], "plain_ms": track["plain_ms"],
-        "bound_ms": track["bound_ms"], "bound_by": track["bound_by"], "library_ms": None,
-        "paths": paths, "callers": callers, "random_4096x1024_r80": synthetic_times,
-    }], "plain_stages": stages, "inertial": {
-        "stereo-inertial": vi_stereo, "rgbd-inertial": vi_rgbd, "mono-inertial": vi_mono,
-        "stages": vi_stages}, "loop_closing": loop, "fisheye": fisheye}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+        track = callers["tracking"]
+        print(card)
+        print(json.dumps({"kernels": [{
+            "name": "window_match", "route": "cuda",
+            "source": "orb_slam3_comments_ghr_torch/csrc/window_match.cu",
+            "replaces": "orb_slam3_comments_ghr_tpu/ops/pallas_match.py:88",
+            # launches over the main runs of phases 4-13, each counted from 0
+            "launches": sum(paths[p]["launches"] for p in (
+                "mono", "stereo", "rgbd", "stereo-inertial", "rgbd-inertial", "mono-inertial",
+                "feature loop", "kidnap and merge", "image loop", "stereo-inertial loop",
+                "inertial kidnap and merge", "mono fisheye", "stereo fisheye",
+                "stereo-inertial fisheye", "cli mono", "cli stereo", "atlas second session")),
+            "max_abs_err": max_err,
+            # device time per launch on the recorded mono tracking call (CUDA graph)
+            "ms": track["device_ms"], "plain_ms": track["plain_ms"],
+            "bound_ms": track["bound_ms"], "bound_by": track["bound_by"], "library_ms": None,
+            "paths": paths, "callers": callers, "random_4096x1024_r80": synthetic_times,
+        }], "plain_stages": stages, "inertial": inertial_results,
+            "loop_closing": {**results["10"]["results"], **results["11"]["results"]},
+            "fisheye": results["12"]["results"], "entry_points": entry}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+    finally:
+        stop_groups(children)
 
 
 if __name__ == "__main__":

@@ -163,6 +163,17 @@ def mat_to_quat(R: torch.Tensor) -> torch.Tensor:
     return q * torch.where(q[..., :1] < 0, -1.0, 1.0)
 
 
+def quat_to_mat(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion (w,x,y,z), normalized first -> rotation matrix (...,3,3)."""
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)], dim=-1),
+        torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], dim=-1),
+        torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], dim=-1),
+    ], dim=-2)
+
+
 def so3_log(R: torch.Tensor) -> torch.Tensor:
     """Log map (...,3,3) -> (...,3) through the quaternion (stable near pi)."""
     q = mat_to_quat(R)

@@ -25,6 +25,8 @@ divergence).
 
 from __future__ import annotations
 
+import zlib
+
 import numpy as np
 import torch
 
@@ -34,8 +36,10 @@ from .. import convert
 from ..map.state import MapState
 from ..ops import cameras
 from ..optim import ba, imu as imu_mod, inertial, vi_ba
+from ..parallel import dba, distributed
 from ..utils.config import SlamConfig
 from ..utils.device import resolve_device
+from ..utils.profiling import GLOBAL_TIMER
 from . import programs
 
 
@@ -85,14 +89,19 @@ class LocalMapper:
 
     # ------------------------------------------------------------------ main
     def process_keyframe(self, kf: int):
-        self.cull_map_points(kf)
-        self.create_new_points(kf)
-        self.fuse_neighbors(kf)
+        with GLOBAL_TIMER.stage("mp_cull"):
+            self.cull_map_points(kf)
+        with GLOBAL_TIMER.stage("mp_create"):
+            self.create_new_points(kf)
+        with GLOBAL_TIMER.stage("fuse"):
+            self.fuse_neighbors(kf)
         if len(self.map.kf_ids()) > 2:
-            self.local_ba(kf)
+            with GLOBAL_TIMER.stage("local_ba"):
+                self.local_ba(kf)
         if self.imu is not None:
             self.maybe_initialize_imu(kf)
-        self.cull_keyframes(kf)
+        with GLOBAL_TIMER.stage("kf_cull"):
+            self.cull_keyframes(kf)
 
     def _merge_preintegrations(self, kf: int):
         """Preintegrated::MergePrevious (ImuTypes.cc:329): when a keyframe of
@@ -491,26 +500,35 @@ class LocalMapper:
                 m.remove_observation(int(pts[j]), int(c))
 
     # ------------------------------------------------------------ global BA
-    def _refuse_distributed(self):
-        if self.cfg.dba_devices != 0:
-            raise NotImplementedError(
-                "distributed whole-map BA is not ported yet (ROADMAP A8): set dba_devices=0")
-
     def global_ba(self, iters: int = 10):
         """GlobalBundleAdjustemnt (Optimizer.cc:2831): all keyframes and
         points of the active map, the first keyframe fixed. Small maps go
-        through the windowed solver in one call; larger ones through the
-        chunked whole-map path (RunGlobalBundleAdjustment,
+        through the windowed solver in one call, unless the BA is sharded
+        over several ranks (`_dba_mesh`); larger ones, and every sharded
+        one, through the whole-map path (RunGlobalBundleAdjustment,
         LoopClosing.cc:3067-3321)."""
-        self._refuse_distributed()
         m = self.map
         kfs = [int(k) for k in m.kf_ids()]
         pts = m.local_point_ids(kfs, cap=10 ** 9)
-        if len(kfs) <= 128 and len(pts) <= self.cfg.local_ba_points:
+        if (self._dba_mesh() is None and len(kfs) <= 128
+                and len(pts) <= self.cfg.local_ba_points):
             self._run_ba(kfs, pts, iters, gauge_fix_first=True)
             return
         self.abort_gba = False  # a fresh GBA clears any stale stop request
         self.run_full_map_ba(kfs, pts, iters)
+
+    def _dba_mesh(self):
+        """The ranks that shard the whole-map BA (`parallel.dba`), or None.
+        cfg.dba_devices: 0 = off, -1 = the whole world, N = its first N
+        ranks; None below 2 ranks, and on a rank outside the first N. Every
+        rank runs the same program, so every rank asks at the same points
+        (a first N makes a process group once, collectively)."""
+        n = self.cfg.dba_devices
+        if n == 0:
+            return None
+        world = distributed.global_mesh().size
+        n = world if n < 0 else min(n, world)
+        return distributed.first_ranks(n) if n >= 2 else None
 
     def request_abort_gba(self):
         """mbStopGBA (LoopClosing.cc:1669): a whole-map BA stops at its next
@@ -518,12 +536,12 @@ class LocalMapper:
         self.abort_gba = True
 
     def run_full_map_ba(self, kfs: list[int], pts, iters: int = 10):
-        """Chunked whole-map BA (`ba.bundle_adjust_resumable`) in bites of 2
+        """Chunked whole-map BA (`ba.bundle_adjust_resumable`), or with a
+        mesh of ranks the landmark-sharded one (`_sharded_ba`), in bites of 2
         LM iterations, the stop request checked between bites. Keyframes
         missing from `kfs` (made after the snapshot) follow their parent's
         correction through the spanning tree, and points first seen from
         them follow their keyframe (LoopClosing.cc:3170-3260)."""
-        self._refuse_distributed()
         m = self.map
         snap_set = set(kfs)
         pts = np.asarray(pts)
@@ -533,17 +551,23 @@ class LocalMapper:
         opt_kfs = [k for k in kfs if k != anchor]
         K = _pad_pow2(len(kfs), 32, 1 << 16)
         P = -(-len(pts) // GBA_CHUNK) * GBA_CHUNK
+        mesh = self._dba_mesh()
+        if mesh is not None:  # landmark shards must divide P evenly
+            P = -(-P // mesh.size) * mesh.size
         prob, cam_slot, obs_valid = self._ba_problem(opt_kfs + [anchor], len(opt_kfs), pts, K, P)
-        R, t, p = prob.cam_R, prob.cam_t, prob.p
-        lam = torch.tensor(1e-4, dtype=p.dtype, device=p.device)
-        done = 0
-        while done < iters and not self.abort_gba:
-            bite = min(2, iters - done)
-            R, t, p, lam = ba.bundle_adjust_resumable(
-                self.cam, prob._replace(cam_R=R, cam_t=t, p=p), lam, iters=bite,
-                point_chunk=GBA_CHUNK)
-            done += bite
-        inlier = ba.classify_observations(self.cam, prob._replace(cam_R=R, cam_t=t, p=p))
+        if mesh is not None:
+            R, t, p, inlier = self._sharded_ba(prob, mesh, kfs, pts, iters)
+        else:
+            R, t, p = prob.cam_R, prob.cam_t, prob.p
+            lam = torch.tensor(1e-4, dtype=p.dtype, device=p.device)
+            done = 0
+            while done < iters and not self.abort_gba:
+                bite = min(2, iters - done)
+                R, t, p, lam = ba.bundle_adjust_resumable(
+                    self.cam, prob._replace(cam_R=R, cam_t=t, p=p), lam, iters=bite,
+                    point_chunk=GBA_CHUNK)
+                done += bite
+            inlier = ba.classify_observations(self.cam, prob._replace(cam_R=R, cam_t=t, p=p))
         pre_R, pre_t = m.kf_R.copy(), m.kf_t.copy()
         self._write_back(opt_kfs, cam_slot, pts, obs_valid, R, t, p, inlier)
         # keyframes made during the BA: T_new(child) = T_old(child)
@@ -566,6 +590,35 @@ class LocalMapper:
             pc = np.einsum("kij,kj->ki", pre_R[ref], m.mp_pos[new_pts]) + pre_t[ref]
             m.mp_pos[new_pts] = np.einsum("kji,kj->ki", m.kf_R[ref],
                                           pc - m.kf_t[ref]).astype(np.float32)
+
+    def _sharded_ba(self, prob, mesh, kfs, pts, iters: int):
+        """The whole-map BA sharded over `mesh` (`parallel.dba`). Every rank
+        of the mesh runs it on the same problem: the ranks first check that
+        their snapshots hold the same keyframes and points, then take rank
+        0's problem (`broadcast_problem`); the stop request of any rank
+        stops all at the same bite (all-reduced); every rank gathers the
+        whole result, so every rank writes back the same map. Returns
+        (R, t, p, inlier) over the whole problem."""
+        dev = prob.p.device
+        ids = np.concatenate([np.asarray(kfs, np.int64), np.asarray(pts, np.int64)])
+        if not dba.same_on_all_ranks([len(kfs), len(pts), zlib.crc32(ids.tobytes())], mesh,
+                                     dev):
+            raise RuntimeError("the ranks' maps hold different keyframes or points: "
+                               "a sharded BA needs the same map on every rank")
+        local = dba.shard_problem(dba.broadcast_problem(prob, mesh), mesh)
+        R, t, p = local.cam_R, local.cam_t, local.p
+        lam = torch.tensor(1e-4, dtype=p.dtype, device=dev)
+        inlier = None
+        done = 0
+        while done < iters and not dba.any_rank(self.abort_gba, mesh, dev):
+            bite = min(2, iters - done)
+            R, t, p, inlier, _, lam = dba.bundle_adjust_sharded(
+                self.cam, local._replace(cam_R=R, cam_t=t, p=p), mesh, iters=bite, lam0=lam)
+            done += bite
+        if inlier is None:  # stopped before the first bite
+            inlier = ba.classify_observations(self.cam, local._replace(cam_R=R, cam_t=t, p=p))
+        full = dba.gather_rows(torch.cat([p, inlier.to(p.dtype)], dim=1), mesh)
+        return R, t, full[:, :3].contiguous(), full[:, 3:] > 0.5
 
     def full_inertial_ba(self, iters: int = 7, max_kfs: int = 256, point_cap: int | None = None):
         """Whole-map FullInertialBA (Optimizer.cc:3254): every keyframe of

@@ -130,6 +130,7 @@ class Tracker:
         self.frame_id = -1
         self.last_time = 0.0
         self.lost_since: float = 0.0
+        self.last_feats = None  # the latest frame's features (for viewers)
         # mono init buffers
         self._init_feats = None
         self._init_time = None
@@ -210,6 +211,7 @@ class Tracker:
         `precomputed` is the (res,) of the fused program run against the
         arrays from prepare_frame."""
         self.frame_id += 1
+        self.last_feats = feats
         if self._prepared_ts != timestamp:
             self._run_frame_prologue(timestamp)
         self._precomputed = precomputed

@@ -15,9 +15,12 @@ intrinsics (`cameras.pinhole_equivalent`).
 
 The system runs on one device: the card (`torch.device("cuda")`) unless the
 caller passes `device="cpu"`. The per-frame and per-keyframe programs run
-there; the map and the IMU sample queue stay on the host. Not ported yet,
-and refused with NotImplementedError: asynchronous mapping, distributed BA
-(ROADMAP A8) and atlas files.
+there; the map and the IMU sample queue stay on the host. `save_atlas` /
+`load_atlas` write and read the whole multi-map state (`map/persistence.py`,
+the JAX package's file format); with `SlamConfig(dba_devices != 0)` in a
+world of several processes (`parallel/distributed.initialize`) the whole-map
+BA is sharded over the ranks (`parallel/dba.py`). Asynchronous mapping is not
+ported yet and is refused with NotImplementedError.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import numpy as np
 import torch
 
 from .frontend import stereo
+from .map import persistence
 from .map.state import MapConfig, MapState
 from .ops import cameras, lie
 from .optim import imu as imu_mod
@@ -41,11 +45,10 @@ from .retrieval.database import KeyFrameDatabase
 from .retrieval.vocabulary import Vocabulary
 from .utils.config import SlamConfig
 from .utils.device import resolve_device
+from .utils.profiling import GLOBAL_TIMER
 
 
 def _check_supported(cfg: SlamConfig):
-    if cfg.dba_devices != 0:
-        raise NotImplementedError("distributed BA is not ported yet (ROADMAP A8): set dba_devices=0")
     if cfg.async_mapping:
         raise NotImplementedError("asynchronous mapping is not ported yet: set async_mapping=False")
 
@@ -65,15 +68,19 @@ class SLAM:
         self._imu_calib = imu_calib or imu_mod.default_calib()
         self._new_session()
 
-    def _new_session(self):
-        """A fresh map, keyframe database, IMU front end, tracker, mapper
-        and loop closer (the vocabulary is kept)."""
-        self.map = MapState(MapConfig(
+    def _new_session(self, map_state: Optional[MapState] = None):
+        """A keyframe database, IMU front end, tracker, mapper and loop
+        closer, all new (the vocabulary is kept), around `map_state` or a
+        fresh map; the database holds the valid keyframes of every sub-map
+        (Atlas::PostLoad)."""
+        self.map = map_state or MapState(MapConfig(
             max_kf=self.cfg.max_kf, max_mp=self.cfg.max_mp, n_feat=self.cfg.n_features,
             obs_cap=self.cfg.obs_cap, scale_factor=self.cfg.scale_factor,
             n_levels=self.cfg.n_levels,
         ))
         self.kfdb = KeyFrameDatabase(self.voc, self.cfg.max_kf)
+        for kf in np.nonzero(self.map.kf_valid)[0]:
+            self.kfdb.add(int(kf), self.map.kf_feat_desc[kf], self.map.kf_feat_valid[kf])
         self.imu = None
         if self.cfg.is_inertial:
             self.imu = ImuFrontend(self._imu_calib, device=self.device)
@@ -249,7 +256,8 @@ class SLAM:
             self.mapper.bad_imu = False
             self.mapper._imu_init_failures = 0
             self.reset_active_map()
-        pose = self.tracker.track(feats, timestamp, precomputed=precomputed)
+        with GLOBAL_TIMER.stage("track_map"):
+            pose = self.tracker.track(feats, timestamp, precomputed=precomputed)
         kf = self.tracker.pending_kf
         if kf is not None and self.n_keyframes() >= 2:
             self.mapper.process_keyframe(kf)
@@ -322,11 +330,38 @@ class SLAM:
         if self.imu is not None:
             self.imu.queue.clear()
 
+    def shutdown(self, atlas_path: Optional[str] = None):
+        """System::Shutdown (System.cc:573): mapping and loop closing run
+        inline, so nothing is left to drain; the atlas is written to
+        `atlas_path` when one is given."""
+        if atlas_path:
+            self.save_atlas(atlas_path)
+
+    def print_time_stats(self):
+        """Tracking::PrintTimeStats: the stages of `GLOBAL_TIMER`."""
+        GLOBAL_TIMER.print_time_stats()
+
+    # ----------------------------------------------------------- persistence
     def save_atlas(self, path: str):
-        raise NotImplementedError("atlas files are not ported yet (map/persistence.py)")
+        """Write every map with its counters (System::SaveAtlas)."""
+        persistence.save_atlas(self.map, path, voc=self.voc)
 
     def load_atlas(self, path: str, new_session: bool = True):
-        raise NotImplementedError("atlas files are not ported yet (map/persistence.py)")
+        """Load a previous session's atlas (System.cc:194-207). The
+        session starts again around it, as `reset()` does: a new keyframe
+        database filled from the loaded keyframes, and a new tracker,
+        mapper, loop closer and IMU front end; the JAX package keeps its
+        components and their state (ROADMAP C12). With `new_session` a new
+        active sub-map is opened, so that tracking starts clean and can
+        later merge into the loaded maps (multi-session SLAM). The file
+        holds no preintegrations: an inertial map loads IMU-initialized,
+        and its links carry no inertial factor (ROADMAP C13)."""
+        m = persistence.load_atlas(path, voc=self.voc)
+        if new_session:
+            m.create_new_map()
+        localization_only = self.tracker.localization_only
+        self._new_session(m)
+        self.tracker.localization_only = localization_only
 
     # --------------------------------------------------------------- export
     def trajectory(self) -> list[tuple[float, np.ndarray]]:

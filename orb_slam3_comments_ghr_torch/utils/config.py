@@ -3,8 +3,10 @@ src/Settings.cc — same knobs, dataclass form; YAML ingestion in io.config).
 
 Copied unchanged from `orb_slam3_comments_ghr_tpu/utils/config.py`, so the
 port needs no JAX. The port runs all six sensors, with loop closing on or
-off, with a pinhole or a KB8 fisheye camera; `SLAM` raises
-NotImplementedError for async mapping and distributed BA (ROADMAP A8)."""
+off, with a pinhole or a KB8 fisheye camera, and shards the whole-map BA
+over the ranks of a `torch.distributed` world with `dba_devices != 0` (the
+world's ranks stand for the JAX package's devices); `SLAM` raises
+NotImplementedError for async mapping."""
 
 from __future__ import annotations
 

@@ -15,7 +15,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..ops import cameras
+from ..ops import cameras, lie
 from ..pipeline.programs import LocalPoints
 
 
@@ -316,7 +316,6 @@ def vi_sequence(n_frames: int, cam_hz: float = 20.0, imu_hz: float = 200.0, radi
     radially out from the arc's centre, as `circular_trajectory`'s outward
     ring does (a turn that revisits its start, for loop closing), instead
     of at `look_at`. Returns (poses, imu_rows (M,7), timestamps)."""
-    from ..ops import lie
     from ..optim.imu import GRAVITY
 
     look = np.asarray(look_at, np.float64)
@@ -369,3 +368,16 @@ def gt_trajectory(poses) -> list:
         T[:3, 3] = t
         out.append((i * 0.05, T))
     return out
+
+
+def write_tum_groundtruth(path: str, poses, timestamps) -> None:
+    """The poses (R_cw, t_cw) as a TUM ground-truth file, `t x y z qx qy qz
+    qw` of the camera in the world per line: what `io/run_slam.py --gt`
+    reads."""
+    with open(path, "w") as f:
+        for ts, (R, t) in zip(timestamps, poses):
+            R_wc = np.asarray(R, np.float32).T
+            c = -R_wc @ np.asarray(t, np.float32)
+            q = lie.mat_to_quat(torch.from_numpy(np.ascontiguousarray(R_wc))).numpy()
+            f.write(f"{ts:.6f} {c[0]:.7f} {c[1]:.7f} {c[2]:.7f} "
+                    f"{q[1]:.7f} {q[2]:.7f} {q[3]:.7f} {q[0]:.7f}\n")

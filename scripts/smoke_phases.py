@@ -13,8 +13,9 @@ launches and matcher calls; the runs' outcome). Phases: 7
 (stereo-inertial), 8 (RGB-D-inertial), 9 (mono-inertial), 10a (the feature
 loop), 10b (the kidnap and merge), 11 (inertial loop closing: (a), (b) and
 (c) on (a)'s map; from a tree that has it), 12 (the fisheye camera: (a)
-mono, (b) stereo, (c) stereo-inertial; from a tree that has it). Needs one
-CUDA card.
+mono, (b) stereo, (c) stereo-inertial; from a tree that has it), 13 (the
+entry points: phase 4's run for its map and atlas, then (a)-(e); from a
+tree that has it). Needs one CUDA card.
 """
 
 import argparse
@@ -25,7 +26,7 @@ import time
 
 PHASES = {"7": "phase7_stereo_inertial", "8": "phase8_rgbd_inertial",
           "9": "phase9_mono_inertial", "10a": "phase10_feature_loop", "10b": "phase10_merge",
-          "11": None, "12": None}
+          "11": None, "12": None, "13": None}
 
 
 def phase11(chip_smoke, window_match, device):
@@ -45,6 +46,28 @@ def phase12(chip_smoke, window_match, device):
     n_c, calls_c, vi = chip_smoke.phase12_stereo_fisheye(window_match, device, inputs, True)
     return n + n_b + n_c, {"a": calls, "b": calls_b, "c": calls_c}, dict(
         mono=mono, stereo=stereo, stereo_inertial=vi)
+
+
+def phase13(chip_smoke, window_match, device):
+    """Phase 13's five runs, as chip_smoke.run_phases runs them, on phase
+    4's frames and final map (phase 4 runs first for them)."""
+    import tempfile
+
+    seq = chip_smoke.render_sequence(chip_smoke.PHASE4_FRAMES)
+    slam = chip_smoke.phase4_slam(window_match, seq)[2]
+    chip_smoke.phase4_lost_and_back(window_match, slam, seq)
+    with tempfile.TemporaryDirectory(prefix="phase13_", dir=chip_smoke.scratch_dir()) as work:
+        atlas = chip_smoke.phase13_save_atlas(slam, work, device)
+        del slam
+        right = chip_smoke.second_inputs(seq, "stereo")
+        launches, calls, out = 0, {}, {}
+        for key, second in (("cli mono", None), ("cli stereo", right)):
+            n, calls[key], _, out[key] = chip_smoke.phase13_cli(window_match, seq, second)
+            launches += n
+        n, calls["atlas"], _, out["atlas"] = chip_smoke.phase13_second_session(
+            window_match, seq, atlas, device)
+        out.update(chip_smoke.phase13_distributed(atlas, device))
+    return launches + n, calls, out
 
 
 def main(argv=None) -> int:
@@ -67,7 +90,7 @@ def main(argv=None) -> int:
     out = {}
     for phase in args.phases:
         t0 = time.perf_counter()
-        run = {"11": phase11, "12": phase12}.get(phase)
+        run = {"11": phase11, "12": phase12, "13": phase13}.get(phase)
         result = (run(chip_smoke, window_match, device) if run
                   else getattr(chip_smoke, PHASES[phase])(window_match, device))
         out[phase] = dict(seconds=time.perf_counter() - t0, launches=result[0], calls=result[1],

@@ -124,8 +124,10 @@ class TestFullMapBA:
 
 def test_global_ba_against_jax():
     """`global_ba` on a map small enough for the windowed solver (the
-    first keyframe pinned), then with `dba_devices` set, which the port
-    refuses (ROADMAP A8)."""
+    first keyframe pinned), then with `dba_devices` set: in one process
+    there is no world of ranks to shard over, so it takes the same
+    single-device path, bit for bit (the sharded path since ROADMAP A8:
+    `test_torch_parallel.py`)."""
     m, mapper, tm, tmp, kfs = both_maps(0)
     mapper.cfg.local_ba_points = tmp.cfg.local_ba_points = 1024  # all 700 points fit
     e0 = _reproj_rmse(tm, kfs)
@@ -133,6 +135,13 @@ def test_global_ba_against_jax():
     tmp.global_ba(iters=10)
     same_maps(m, tm)
     assert _reproj_rmse(tm, kfs) < 0.35 * e0
-    tmp.cfg = tconfig.SlamConfig(dba_devices=2)
-    with pytest.raises(NotImplementedError, match="A8"):
-        tmp.global_ba()
+    snap = convert.map_state_to_numpy(tm)
+    for dba_devices in (2, 0):
+        cfg = tconfig.SlamConfig(dba_devices=dba_devices, local_ba_points=1024)
+        mp = tmapper.LocalMapper(TCAM, cfg, convert.map_state_from_numpy(snap), device="cpu")
+        assert mp._dba_mesh() is None
+        mp.global_ba(iters=4)
+        if dba_devices:
+            sharded = mp.map
+    for k in ("kf_R", "kf_t", "mp_pos", "mp_obs_kf"):
+        assert np.array_equal(getattr(sharded, k), getattr(mp.map, k)), k
