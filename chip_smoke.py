@@ -73,11 +73,21 @@ session that loads it as a new sub-map and tracks phase 4's first frames
 again; (d) the landmark-sharded BA of `parallel/dba.py` on two ranks of
 this script (`--dba-worker`) sharing the card over gloo, against the
 single-process BA; (e) the live whole-map BA (`SlamConfig(dba_devices=-1)`,
-`mapper.global_ba`) on those ranks on (c)'s atlas. Phases 4-13 each count
-the window match's
+`mapper.global_ba`) on those ranks on (c)'s atlas. Phase 14 runs
+asynchronous mapping and the deep pipeline: (a) phase 4's frames with the
+mapping worker (loop closing on) beside a synchronous run of the same
+frames, per-frame times of both; (b) bench.py's mono pass (its config, 300
+frames) through `track_monocular_pipelined`; (c) stereo-inertial
+`track_stereo_pipelined`, the 60 frames of tests/test_stereo_pipelined.py
+and phase 7's 150, the tracker's VI-refinement graph captured and replayed
+beside the worker; (d) phase 10 (a)'s loop with the whole-map BA on its own
+thread, to phase 10 (a)'s bars.
+Phases 4-14 each count the window match's
 launches from 0 (the loop closer's projection counts and fuses apart from
-the mapper's fuse) and record its arguments on one call of each caller;
-phases 7-9, 10, 11 and 12 run in four processes of this
+the mapper's fuse; the tracker's and the worker's calls on per-thread
+caller stacks) and record its arguments on one call of each caller (a
+worker-thread fuse in phase 14);
+phases 7-9, 10, 11, 12 and 14 run in five processes of this
 script (`--phase-group`) beside the main one's phases 5, 6 and 13 (a)-(c),
 since every phase is bound by its host's launches and the card is idle
 most of the time; their output follows the main one's; after them, phase
@@ -99,6 +109,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -442,6 +453,32 @@ RECORD_AT = {"tracking": 60, "init": None, "fuse": 40}
 RECORD_AT_DEPTH = {"tracking": 60, "fuse": None}
 
 
+class ThreadStack:
+    """A list of caller keys per thread, for `_count_calls` and
+    `_recording`: the tracking thread and the mapping worker each see only
+    their own callers."""
+
+    def __init__(self):
+        self._local = threading.local()
+
+    def _list(self) -> list:
+        if not hasattr(self._local, "items"):
+            self._local.items = []
+        return self._local.items
+
+    def append(self, key):
+        self._list().append(key)
+
+    def pop(self):
+        return self._list().pop()
+
+    def __getitem__(self, i):
+        return self._list()[i]
+
+    def __bool__(self) -> bool:
+        return bool(self._list())
+
+
 def _recording(fn, calls: dict, active: list, recorded: dict, record_at: dict, prefix: str):
     """fn (window_match), keeping a device copy of its arguments, under
     prefix + caller, on the calls that record_at names, by the caller on top
@@ -468,6 +505,8 @@ def _count_matchers(wm_mod, calls: dict, active: list, recorded: dict, record_at
     originals = [
         (programs, "track_against_points",
          _count_calls(programs, "track_against_points", calls, "tracking", active)),
+        # the deep pipeline's name for the same program
+        (programs, "track_only", _count_calls(programs, "track_only", calls, "tracking", active)),
         (matching, "search_for_initialization",
          _count_calls(matching, "search_for_initialization", calls, "init", active)),
         (programs, "fuse_project", _count_calls(programs, "fuse_project", calls, fuse_key, active)),
@@ -1328,8 +1367,11 @@ def _count_loop_matchers(wm_mod, slam, calls: dict, recorded: dict, record_at: d
     """`_count_matchers` for a SLAM with loop closing: a fuse_project call
     made inside the loop closer's `_count_projection_matches` or
     `_fuse_points_into` counts under "loop_count" / "loop_fuse", any other
-    under "fuse". Returns a function that puts everything back."""
-    ctx, active = [], []
+    under "fuse". Returns a function that puts everything back. The
+    caller stacks are per thread (`ThreadStack`): with asynchronous mapping
+    the loop closer's and the mapper's calls come from the worker thread
+    while the tracker's come from the caller's."""
+    ctx, active = ThreadStack(), ThreadStack()
     originals = _count_matchers(wm_mod, calls, active, recorded, record_at, prefix,
                                 fuse_key=lambda: ctx[-1] if ctx else "fuse")
     lc = slam.loopcloser
@@ -2571,6 +2613,383 @@ def phase_group_fisheye(window_match, device, work):
     return paths, recorded, fisheye
 
 
+# ------------------------------------------------------------------ phase 14
+# asynchronous mapping and the deep pipeline: (a) phase 4's frames with the
+# mapping worker and loop closing on, beside a synchronous run of the same
+# frames; (b) bench.py's mono pass (its config, 300 frames of
+# circular_trajectory(300) in scene 7) through track_monocular_pipelined;
+# (c) stereo-inertial through track_stereo_pipelined, the 60 frames and
+# config of tests/test_stereo_pipelined.py and phase 7's 150; (d) phase 10
+# (a)'s feature loop, its whole-map BA on the loop closer's thread
+PHASE14_BENCH_FRAMES = 300
+PHASE14_BENCH_WARMUP = 12  # bench.py's _mono_pass warm-up frames
+PHASE14_VI_FRAMES = 60     # tests/test_stereo_pipelined.py
+# the last fuse of (a)'s async run, made on the mapping worker's thread,
+# for phase 1
+RECORD_AT_ASYNC = {"fuse": None}
+
+
+def _frame_ms(fn) -> float:
+    """Milliseconds of fn() on the host clock, ending in a sync of the
+    caller's stream (which the tracking entry points leave waiting on the
+    tracking stream): the frame's own work, not the mapping worker's."""
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.current_stream().synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _ms_stats(v) -> dict:
+    return {"n": len(v), "median_ms": float(np.median(v)), "p75_ms": float(np.percentile(v, 75)),
+            "max_ms": float(max(v))}
+
+
+def _watch_worker(slam) -> dict:
+    """Counts on an asynchronous SLAM's worker: keyframes it processed, and
+    the frames whose keyframe a busy mapper held back (the tracker would
+    have inserted one with an idle mapper: an empty queue, no keyframe
+    being mapped). Instance attributes: the run's end puts nothing back."""
+    seen = {"worker_keyframes": 0, "held_back": 0, "busy": 0}
+    process = slam.mapper.process_keyframe
+
+    def counted(kf):
+        seen["busy"] += 1
+        try:
+            return process(kf)
+        finally:
+            seen["busy"] -= 1
+            seen["worker_keyframes"] += 1
+
+    need = slam.tracker._need_new_kf
+
+    def probed(*args, **kwargs):
+        t = slam.tracker
+        out = need(*args, **kwargs)
+        if not out and (t.queue_probe() > 0 or t.mapper_busy()):
+            hooks = t.queue_probe, t.mapper_busy, t.interrupt_ba
+            t.queue_probe, t.mapper_busy, t.interrupt_ba = (lambda: 0), (lambda: False), None
+            try:
+                seen["held_back"] += bool(need(*args, **kwargs))
+            finally:
+                t.queue_probe, t.mapper_busy, t.interrupt_ba = hooks
+        return out
+
+    slam.mapper.process_keyframe = counted
+    slam.tracker._need_new_kf = probed
+    return seen
+
+
+def phase14_async_mono(wm_mod, device):
+    """(a) Phase 4's 120 frames through `track_monocular` at the default
+    config (loop closing on), once synchronously and once with
+    `async_mapping=True`, in this process. Fails unless the async run meets
+    phase 4's bars (>= 90 % tracked after init, >= 3 keyframes, > 200
+    points, Sim(3) ATE < 5 cm), its worker raised nothing, and the window
+    match launched once per matcher call. Prints both runs' per-frame host
+    ms (every frame, keyframes included: median, p75, the worst), the
+    keyframes the worker processed, the frames the queue probe held back
+    and the launches per thread. Returns (launches, calls, recorded
+    arguments, results)."""
+    from orb_slam3_comments_ghr_torch.ops import cameras
+    from orb_slam3_comments_ghr_torch.system import SLAM
+    from orb_slam3_comments_ghr_torch.utils import evaluation, synthetic
+    from orb_slam3_comments_ghr_torch.utils.config import SlamConfig
+
+    frames, _, poses = render_sequence(PHASE4_FRAMES)
+    gt = synthetic.gt_trajectory(poses[:PHASE4_FRAMES])
+    out, recorded = {}, {}
+    for mode in ("sync", "async"):
+        slam = SLAM(cameras.euroc_cam0(), SlamConfig(async_mapping=mode == "async"),
+                    device=device)
+        calls = {"tracking": 0, "init": 0, "fuse": 0, "loop_count": 0, "loop_fuse": 0}
+        restore = _count_loop_matchers(wm_mod, slam, calls, recorded,
+                                       RECORD_AT_ASYNC if mode == "async" else {}, "async ")
+        seen = _watch_worker(slam) if mode == "async" else {}
+        torch.cuda.synchronize()
+        wm_mod.launches = 0
+        wm_mod.launches_by_thread.clear()
+        try:
+            ms, tracked, init_frame = [], [], None
+            t0 = time.perf_counter()
+            for i in range(PHASE4_FRAMES):
+                box = {}
+                ms.append(_frame_ms(lambda: box.update(
+                    pose=slam.track_monocular(frames[i], i * 0.05))))
+                if box["pose"] is not None:
+                    init_frame = i if init_frame is None else init_frame
+                    tracked.append(i)
+            slam.wait_idle()
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            launches, by_thread = wm_mod.launches, dict(wm_mod.launches_by_thread)
+        finally:
+            restore()
+        if init_frame is None:
+            raise AssertionError(f"phase14 (a) {mode}: the run never initialized")
+        after = PHASE4_FRAMES - 1 - init_frame
+        n_after = sum(1 for i in tracked if i > init_frame)
+        ate = evaluation.ate_rmse(slam.trajectory(), gt, with_scale=True)
+        stats = _ms_stats(ms[init_frame + 1:])
+        out[mode] = dict(init_frame=init_frame, tracked_after_init=n_after, after=after,
+                         keyframes=slam.n_keyframes(), points=slam.n_map_points(), ate_m=ate,
+                         frames=stats, wall_s=wall, launches=launches, calls=calls,
+                         launches_by_thread=by_thread, worker_errors=slam.worker_errors,
+                         loops=slam.loopcloser.n_loops, **seen)
+        print(f"phase14 (a) {mode} mono {PHASE4_FRAMES} frames: initialized at frame "
+              f"{init_frame}, tracked {n_after}/{after} after init, keyframes "
+              f"{slam.n_keyframes()}, map points {slam.n_map_points()}, Sim(3)-aligned ATE "
+              f"{ate * 1e3:.3f} mm, worker_errors {slam.worker_errors}, wall {wall:.1f} s")
+        print(f"phase14 (a) {mode} per-frame host ms after init, keyframe frames included "
+              f"(median / p75 / worst): {stats['median_ms']:.3f} / {stats['p75_ms']:.3f} / "
+              f"{stats['max_ms']:.3f}")
+        if mode == "async":
+            print(f"phase14 (a) async: keyframes the worker processed {seen['worker_keyframes']}, "
+                  f"frames "
+                  f"whose keyframe the busy mapper held back {seen['held_back']}, "
+                  f"window_match launches by thread {by_thread}")
+        _check_launches(f"phase14 (a) {mode}", launches, calls)
+        if n_after < 0.9 * after or slam.n_keyframes() < 3 or slam.n_map_points() <= 200:
+            raise AssertionError(f"phase14 (a) {mode}: < 90 % tracked, < 3 keyframes or <= 200 "
+                                 "points")
+        if not ate < 0.05 or slam.worker_errors != 0:
+            raise AssertionError(f"phase14 (a) {mode}: ATE {ate:.4f} m >= 5 cm or "
+                                 f"{slam.worker_errors} worker errors")
+        del slam
+    if out["async"]["launches_by_thread"].get("mapping", 0) == 0 or "async fuse" not in recorded:
+        raise AssertionError("phase14 (a): the worker thread launched no fuse")
+    a = out["async"]
+    return a["launches"], a["calls"], recorded, out
+
+
+def phase14_bench_mono(wm_mod, device):
+    """(b) bench.py's mono pass on the port: its config (1024 features,
+    local map 4096, local BA 2048, a keyframe at least every 10 frames,
+    min_init_matches 60, async mapping), 300 frames of
+    circular_trajectory(300) in scene 7 through `track_monocular_pipelined`,
+    then `flush_pipeline()` and `wait_idle()`. Fails unless the Sim(3) ATE
+    of the trajectory is < 5 cm, the worker raised nothing and the window
+    match launched once per matcher call. Frames per second as bench.py
+    takes them (1 / the median per-call host time after 12 warm-up calls),
+    and over the run's wall clock."""
+    from orb_slam3_comments_ghr_torch.ops import cameras
+    from orb_slam3_comments_ghr_torch.system import SLAM
+    from orb_slam3_comments_ghr_torch.utils import evaluation, synthetic
+    from orb_slam3_comments_ghr_torch.utils.config import SlamConfig
+
+    frames, _, poses = render_sequence(PHASE14_BENCH_FRAMES)
+    cfg = SlamConfig(n_features=1024, local_points_cap=4096, local_ba_points=2048,
+                     max_frames_between_kf=10, min_init_matches=60, async_mapping=True)
+    slam = SLAM(cameras.euroc_cam0(), cfg, device=device)
+    calls = {"tracking": 0, "init": 0, "fuse": 0, "loop_count": 0, "loop_fuse": 0}
+    restore = _count_loop_matchers(wm_mod, slam, calls, {}, {})
+    torch.cuda.synchronize()
+    wm_mod.launches = 0
+    try:
+        ms = []
+        t0 = time.perf_counter()
+        for i in range(PHASE14_BENCH_FRAMES):
+            ms.append(_frame_ms(lambda: slam.track_monocular_pipelined(frames[i], i * 0.05)))
+        slam.flush_pipeline()
+        slam.wait_idle()
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = wm_mod.launches
+    finally:
+        restore()
+    ate = evaluation.ate_rmse(slam.trajectory(), synthetic.gt_trajectory(poses), with_scale=True)
+    stats = _ms_stats(ms[PHASE14_BENCH_WARMUP:])
+    fps = 1e3 / stats["median_ms"]
+    print(f"phase14 (b) bench mono pass, {PHASE14_BENCH_FRAMES} frames pipelined with async "
+          f"mapping: {len(slam.trajectory())} poses, keyframes {slam.n_keyframes()}, map points "
+          f"{slam.n_map_points()}, loops {slam.loopcloser.n_loops}, Sim(3)-aligned ATE "
+          f"{ate * 1e3:.3f} mm, worker_errors {slam.worker_errors}")
+    print(f"phase14 (b) frames per second {fps:.2f} (1 / median call after "
+          f"{PHASE14_BENCH_WARMUP} warm-up calls), {PHASE14_BENCH_FRAMES / wall:.2f} over the "
+          f"wall clock ({wall:.1f} s, flush and drain included); per-call host ms (median / p75 / "
+          f"worst): {stats['median_ms']:.3f} / {stats['p75_ms']:.3f} / {stats['max_ms']:.3f}")
+    _check_launches("phase14 (b)", launches, calls)
+    if not ate < 0.05 or slam.worker_errors != 0:
+        raise AssertionError(f"phase14 (b): ATE {ate:.4f} m >= 5 cm or {slam.worker_errors} "
+                             "worker errors")
+    return launches, calls, dict(fps=fps, fps_wall=PHASE14_BENCH_FRAMES / wall, wall_s=wall,
+                                 frames=stats, ate_m=ate, keyframes=slam.n_keyframes(),
+                                 poses=len(slam.trajectory()))
+
+
+def phase14_stereo_inertial(wm_mod, device, n: int):
+    """(c) Stereo-inertial `track_stereo_pipelined` with async mapping over
+    the first n frames of `vi_sequence(n)` (scene 7, the right view b to the
+    right): n = 60 at tests/test_stereo_pipelined.py's config (768
+    features, local map and BA 2048, a keyframe every 5 frames) to its bars
+    (IMU initialized, > 45 poses, metric ATE < 15 cm); n = 150 at phase 7's
+    config to phase 7's bars (IMU initialized, >= 95 % tracked, metric ATE <
+    8 cm). Loop closing off, as both. The tracker's VI refinement must be
+    captured into its CUDA graph and replayed while the worker runs; fails
+    also on a worker error or launches that differ from the matcher
+    calls."""
+    from orb_slam3_comments_ghr_torch.ops import cameras
+    from orb_slam3_comments_ghr_torch.system import SLAM
+    from orb_slam3_comments_ghr_torch.utils import config, evaluation
+
+    left, right, rows, times, poses = vi_inputs(n, 7, "right")
+    widths = (dict(n_features=768, local_points_cap=2048, local_ba_points=2048,
+                   max_frames_between_kf=5) if n == PHASE14_VI_FRAMES else
+              dict(n_features=1024, local_points_cap=4096, local_ba_points=2048,
+                   max_frames_between_kf=10, min_init_matches=60))
+    cfg = config.SlamConfig(sensor=config.IMU_STEREO, enable_loop_closing=False,
+                            async_mapping=True, **widths)
+    slam = SLAM(cameras.euroc_cam0(), cfg, imu_calib=imu_calib(), device=device)
+    seen = _watch_worker(slam)
+    graph = slam.tracker._pose_inertial
+    capture, replays, captured_busy = graph._capture, [0], []
+
+    def watched_capture(*args):
+        captured_busy.append(seen["busy"] > 0 or slam._map_queue.qsize() > 0)
+        return capture(*args)
+
+    graph._capture = watched_capture
+    run_graph = slam.tracker._pose_inertial
+
+    def counted_graph(*args):
+        replays[0] += 1
+        return run_graph(*args)
+
+    slam.tracker._pose_inertial = counted_graph
+    calls = {"tracking": 0, "init": 0, "fuse": 0}
+    originals = _count_matchers(wm_mod, calls, ThreadStack(), {}, {})
+    torch.cuda.synchronize()
+    wm_mod.launches = 0
+    try:
+        ms = []
+        for i in range(n):
+            ms.append(_frame_ms(lambda: slam.track_stereo_pipelined(
+                left[i], right[i], times[i], imu_samples=rows[i])))
+        slam.flush_pipeline()
+        slam.wait_idle()
+        torch.cuda.synchronize()
+        launches = wm_mod.launches
+    finally:
+        for module, name, fn in originals:
+            setattr(module, name, fn)
+    traj = slam.trajectory()
+    ate = evaluation.ate_rmse(traj, vi_gt(poses, times), with_scale=False)
+    imu_init = slam.map.map_imu_init.get(slam.map.active_map, False)
+    stats = _ms_stats(ms[slam.cfg.pipeline_depth:])
+    print(f"phase14 (c) stereo-inertial pipelined, async, {n} frames: IMU initialized {imu_init}, "
+          f"poses {len(traj)}, keyframes {slam.n_keyframes()} (the worker processed "
+          f"{seen['worker_keyframes']}, the busy mapper held back {seen['held_back']}), metric ATE "
+          f"{ate * 1e3:.3f} mm, worker_errors {slam.worker_errors}; VI refinement graphs "
+          f"captured {len(captured_busy)} (with the worker busy: {sum(captured_busy)}), calls "
+          f"{replays[0]}; per-call host ms (median / p75 / worst) {stats['median_ms']:.3f} / "
+          f"{stats['p75_ms']:.3f} / {stats['max_ms']:.3f}")
+    _check_launches(f"phase14 (c) {n}", launches, calls)
+    if n == PHASE14_VI_FRAMES:
+        ok = imu_init and len(traj) > 45 and ate < 0.15
+    else:
+        ok = imu_init and len(traj) >= 0.95 * n and ate < 0.08
+    if not ok or slam.worker_errors != 0:
+        raise AssertionError(f"phase14 (c) {n}: IMU init {imu_init}, {len(traj)} poses, metric "
+                             f"ATE {ate:.4f} m, {slam.worker_errors} worker errors")
+    if not captured_busy or replays[0] == 0 or calls["init"] != 0:
+        raise AssertionError(f"phase14 (c) {n}: the VI refinement's graph was not captured and "
+                             "replayed, or the two-view init ran")
+    return launches, calls, dict(imu_init=bool(imu_init), poses=len(traj), ate_m=ate,
+                                 keyframes=slam.n_keyframes(), frames=stats,
+                                 graphs_captured=len(captured_busy),
+                                 captured_with_worker_busy=sum(captured_busy),
+                                 graph_calls=replays[0], **seen)
+
+
+def phase14_background_gba(wm_mod, device):
+    """(d) Phase 10 (a)'s feature loop with async mapping, the tracker never
+    waiting for the worker: it must meet phase 10 (a)'s bars (a loop or
+    merge, > 70 poses, Sim(3) ATE < 8 cm, finite points), a loop's
+    whole-map BA must have run on the loop closer's thread and been joined
+    by `wait_idle`, the worker must have raised nothing, and the window
+    match must have launched once per matcher call."""
+    from orb_slam3_comments_ghr_torch.ops import cameras
+    from orb_slam3_comments_ghr_torch.system import SLAM
+    from orb_slam3_comments_ghr_torch.utils import evaluation, synthetic
+
+    cam = cameras.euroc_cam0()
+    world = synthetic.make_ring_world(13)
+    poses = synthetic.circular_trajectory(PHASE10_FEATURE_FRAMES, arc=1.06, outward=True)
+    feats = [synthetic.render_features(world, cam, R, t, n_feat=512, seed=1300 + i, noise_px=0.7,
+                                       device=device)[0] for i, (R, t) in enumerate(poses)]
+    slam = SLAM(cam, _loop_cfg(n_features=512, local_points_cap=2048, local_ba_points=2048,
+                               min_init_matches=60, async_mapping=True), device=device)
+    gba_threads = []
+    for name in ("global_ba", "full_inertial_ba"):
+        fn = getattr(slam.mapper, name)
+
+        def on_thread(*args, _fn=fn, **kwargs):
+            gba_threads.append(threading.current_thread().name)
+            return _fn(*args, **kwargs)
+
+        setattr(slam.mapper, name, on_thread)
+    calls = {"tracking": 0, "init": 0, "fuse": 0, "loop_count": 0, "loop_fuse": 0}
+    restore = _count_loop_matchers(wm_mod, slam, calls, {}, {})
+    torch.cuda.synchronize()
+    wm_mod.launches = 0
+    try:
+        est = []
+        for i in range(PHASE10_FEATURE_FRAMES):
+            pose = slam.track_features(feats[i], i * 0.05)
+            if pose is not None:
+                est.append((i * 0.05, pose))
+        slam.wait_idle()
+        torch.cuda.synchronize()
+        launches = wm_mod.launches
+    finally:
+        restore()
+    lc = slam.loopcloser
+    tag = "phase14 (d)"
+    ate = evaluation.ate_rmse(est, synthetic.gt_trajectory(poses), with_scale=True)
+    finite = bool(np.isfinite(slam.map.mp_pos[slam.map.mp_ids()]).all())
+    print(f"{tag} feature loop with async mapping, {PHASE10_FEATURE_FRAMES} frames: poses "
+          f"{len(est)}, loops {lc.n_loops}, merges {lc.n_merges}, keyframes {slam.n_keyframes()}, "
+          f"whole-map BAs on threads {gba_threads}, running after wait_idle {lc.gba_running}, "
+          f"Sim(3)-aligned ATE {ate * 1e3:.3f} mm, points finite {finite}, worker_errors "
+          f"{slam.worker_errors}")
+    _check_launches(tag, launches, calls)
+    if len(est) <= 70 or not ate < 0.08 or not finite or slam.worker_errors != 0:
+        raise AssertionError(f"{tag}: <= 70 poses, ATE >= 8 cm, a non-finite point, or "
+                             f"{slam.worker_errors} worker errors")
+    if lc.n_loops + lc.n_merges < 1:
+        raise AssertionError(f"{tag}: no loop or merge")
+    if lc.n_loops and (set(gba_threads) != {"gba"} or lc.gba_running):
+        raise AssertionError(f"{tag}: the whole-map BA ran on {gba_threads}, not on its own "
+                             "thread, or was not joined")
+    return launches, calls, dict(poses=len(est), loops=lc.n_loops, merges=lc.n_merges, ate_m=ate,
+                                 gba_threads=gba_threads, keyframes=slam.n_keyframes())
+
+
+def phase_group_async(window_match, device, work):
+    """Phase 14."""
+    paths, recorded, out = {}, {}, {}
+    t0 = time.perf_counter()
+    n, calls, rec, out["async_mono"] = phase14_async_mono(window_match, device)
+    paths["async mono"] = dict(calls, launches=n)
+    recorded.update(rec)
+    print(f"phase14 (a) passed in {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    n, calls, out["bench_mono"] = phase14_bench_mono(window_match, device)
+    paths["bench mono pipelined"] = dict(calls, launches=n)
+    print(f"phase14 (b) passed in {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    for frames_n, key in ((PHASE14_VI_FRAMES, "stereo-inertial pipelined 60"),
+                          (PHASE7_FRAMES, "stereo-inertial pipelined 150")):
+        n, calls, out[key] = phase14_stereo_inertial(window_match, device, frames_n)
+        paths[key] = dict(calls, launches=n)
+    print(f"phase14 (c) passed in {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    n, calls, out["background_gba"] = phase14_background_gba(window_match, device)
+    paths["feature loop async"] = dict(calls, launches=n)
+    print(f"phase14 (d) passed in {time.perf_counter() - t1:.1f} s")
+    print(f"phase14 passed in {time.perf_counter() - t0:.1f} s")
+    return paths, recorded, out
+
+
 # ------------------------------------------------------------------ phase 13
 # EuRoC-like timestamps of the CLI's dataset folders (nanoseconds in the files)
 PHASE13_T0 = 1403636579.0
@@ -3079,7 +3498,7 @@ def main(argv=None) -> int:
     ap.add_argument("--atlas", nargs=2, help="phase 13 (c)'s atlas files, phase 4's map and "
                     "its perturbed copy (with --dba-worker)")
     ap.add_argument("--phase-group", choices=tuple(CHILD_GROUPS),
-                    help="run one group of phases 7-12 (started by the main run)")
+                    help="run one group of phases 7-14 (started by the main run)")
     ap.add_argument("--work", help="the main run's working directory (with --phase-group)")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -3098,12 +3517,13 @@ def main(argv=None) -> int:
         return run_phases(opts, matching, window_match, work)
 
 
-# phases 7-12 run in processes of their own, one per group, beside the main
+# phases 7-12 and 14 run in processes of their own, one per group, beside the main
 # process's phases 5, 6 and 13 (a)-(c): every phase is bound by its host's
 # Python and launches (the card is idle most of the time), so on the
 # machine's cores the groups take about the time of the longest, not the sum
 CHILD_GROUPS = {"7-9": phase_group_inertial, "10": phase_group_loop,
-                "11": phase_group_inertial_loop, "12": phase_group_fisheye}
+                "11": phase_group_inertial_loop, "12": phase_group_fisheye,
+                "14": phase_group_async}
 GROUP_TIMEOUT_S = 1100
 
 
@@ -3257,7 +3677,8 @@ def run_phases(opts, matching, window_match, work: str) -> int:
                                        *(f"cli {c}" for c in RECORD_AT_CLI),
                                        *(f"cli stereo {c}" for c in RECORD_AT_CLI_STEREO),
                                        *(f"atlas {c}" for c in RECORD_AT_SESSION2
-                                         if f"atlas {c}" in recorded)])
+                                         if f"atlas {c}" in recorded),
+                                       *(f"async {c}" for c in RECORD_AT_ASYNC)])
         max_err = max(max_err, err)
         print("phase1 on the recorded caller inputs passed")
 
@@ -3267,12 +3688,14 @@ def run_phases(opts, matching, window_match, work: str) -> int:
             "name": "window_match", "route": "cuda",
             "source": "orb_slam3_comments_ghr_torch/csrc/window_match.cu",
             "replaces": "orb_slam3_comments_ghr_tpu/ops/pallas_match.py:88",
-            # launches over the main runs of phases 4-13, each counted from 0
+            # launches over the main runs of phases 4-14, each counted from 0
             "launches": sum(paths[p]["launches"] for p in (
                 "mono", "stereo", "rgbd", "stereo-inertial", "rgbd-inertial", "mono-inertial",
                 "feature loop", "kidnap and merge", "image loop", "stereo-inertial loop",
                 "inertial kidnap and merge", "mono fisheye", "stereo fisheye",
-                "stereo-inertial fisheye", "cli mono", "cli stereo", "atlas second session")),
+                "stereo-inertial fisheye", "cli mono", "cli stereo", "atlas second session",
+                "async mono", "bench mono pipelined", "stereo-inertial pipelined 60",
+                "stereo-inertial pipelined 150", "feature loop async")),
             "max_abs_err": max_err,
             # device time per launch on the recorded mono tracking call (CUDA graph)
             "ms": track["device_ms"], "plain_ms": track["plain_ms"],
@@ -3280,7 +3703,8 @@ def run_phases(opts, matching, window_match, work: str) -> int:
             "paths": paths, "callers": callers, "random_4096x1024_r80": synthetic_times,
         }], "plain_stages": stages, "inertial": inertial_results,
             "loop_closing": {**results["10"]["results"], **results["11"]["results"]},
-            "fisheye": results["12"]["results"], "entry_points": entry}))
+            "fisheye": results["12"]["results"], "entry_points": entry,
+            "async": results["14"]["results"]}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))

@@ -164,11 +164,15 @@ def to_numpy(container) -> dict:
 def map_state_to_numpy(m) -> dict:
     """Every array and counter of a MapState (either package's: both are
     host numpy) as a dict of copies; the config under "cfg", and the fisheye
-    rig's (R_rl, t_rl) under "rig" where the map has one."""
+    rig's (R_rl, t_rl) under "rig" where the map has one. The port's
+    `mp_born` stays out: it orders one process's readers against its
+    writers, and a copy starts with every slot born at version 0."""
     out = {"cfg": dataclasses.asdict(m.cfg)}
     if m.rig is not None:
         out["rig"] = tuple(np.array(a, np.float32) for a in m.rig)
     for k, v in vars(m).items():
+        if k == "mp_born":
+            continue
         if isinstance(v, np.ndarray):
             out[k] = v.copy()
         elif isinstance(v, (int, float, list, dict)) and k != "cfg":

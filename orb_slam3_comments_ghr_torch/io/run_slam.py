@@ -146,7 +146,7 @@ def main(argv=None):
     if viewer is not None:
         viewer.stop()
 
-    slam.shutdown()  # mapping runs inline: nothing to drain
+    slam.shutdown()  # drains the mapping worker and a whole-map BA, if any
     slam.save_trajectory_tum(args.out)
     if args.viz:
         import os as _os

@@ -109,6 +109,10 @@ class MapState:
         self.mp_valid = np.zeros((M,), bool)
         self.mp_map_id = np.full((M,), -1, np.int32)
         self.mp_first_kf = np.full((M,), -1, np.int32)
+        # the map version at which the point now in the slot was made: a
+        # reader holding ids from version v keeps only slots born <= v
+        # (a slot freed by remove_point is reused by a later point)
+        self.mp_born = np.zeros((M,), np.int64)
         self.mp_n_obs = np.zeros((M,), np.int32)
         self.mp_found = np.zeros((M,), np.float32)      # found/visible stats
         self.mp_visible = np.zeros((M,), np.float32)
@@ -261,6 +265,7 @@ class MapState:
             first_kf, np.asarray(feat_idx)[np.nonzero(ok)[0]]
         ]
         self.mp_valid[idx] = True
+        self.mp_born[idx] = self.version + 1  # the bump below
         self.mp_map_id[idx] = self.active_map
         self.mp_first_kf[idx] = first_kf
         self.mp_n_obs[idx] = 0

@@ -11,7 +11,9 @@ best = second = BIG and idx 0. An invisible query comes in with r = -1.
 `window_match` launches the CUDA kernel of `csrc/window_match.cu` on CUDA
 tensors and runs `window_match_plain` on CPU tensors. There is no fallback:
 on a CUDA tensor the kernel runs or the call raises. Each call with N > 0
-is one launch, counted in this module's `launches`.
+is one launch, counted in this module's `launches` and, by the name of the
+thread that launched it, in `launches_by_thread`; a lock keeps both exact
+when the tracker and the mapping worker launch at once.
 
 The kernel (its head note has the details) is bound by latency, not by
 its few operations and bytes: the launch, two global round trips, and the
@@ -41,6 +43,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -111,6 +114,17 @@ def _library():
 
 
 launches = 0  # kernel launches of window_match, in this process
+launches_by_thread: dict[str, int] = {}  # the same, by thread name
+_count_lock = threading.Lock()
+
+
+def count_launch():
+    """Count one kernel launch (in `launches` and `launches_by_thread`)."""
+    global launches
+    name = threading.current_thread().name
+    with _count_lock:
+        launches += 1
+        launches_by_thread[name] = launches_by_thread.get(name, 0) + 1
 
 
 def _check(name, x, dtype, shape, device):
@@ -145,7 +159,6 @@ def window_match(qdesc, q_uv, q_radius, q_lvl_lo, q_lvl_hi,
     if dev.type != "cuda":
         raise ValueError(f"window_match runs on cpu or cuda tensors, got {dev}")
 
-    global launches
     args = (qdesc, q_uv, q_radius, q_lvl_lo, q_lvl_hi, tdesc, t_xy, t_level, t_valid)
     out = torch.empty((3, n), dtype=i32, device=dev)  # idx, best, second
     if n:
@@ -154,5 +167,5 @@ def window_match(qdesc, q_uv, q_radius, q_lvl_lo, q_lvl_hi,
                          torch.cuda.current_stream(dev).cuda_stream, dev.index)
         if err != 0:
             raise RuntimeError(f"window_match kernel launch failed: cudaError {err}")
-        launches += 1
+        count_launch()
     return out.unbind(0)

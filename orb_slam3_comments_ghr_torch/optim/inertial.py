@@ -30,6 +30,7 @@ import torch
 from torch.func import jacfwd
 
 from ..ops import cameras, lie
+from ..utils.device import forward_ad_locked
 from . import imu as imu_mod
 from . import robust
 
@@ -90,7 +91,7 @@ def _jac_and_value(f):
         r = f(x)
         return r, r
 
-    return jacfwd(both, has_aux=True)
+    return forward_ad_locked(jacfwd(both, has_aux=True))
 
 
 def _solve(H, b, damp):
@@ -267,7 +268,7 @@ def pose_inertial_optimize(cam: cameras.Camera, state0: VIState, prev: VIState,
     if prior is None:
         return st, inlier, inlier.sum(), None
     # the next frame's prior: J^T J of all factors at the solution
-    J = jacfwd(lambda xx: full_residuals(xx, inlier))(x)
+    J = forward_ad_locked(jacfwd(lambda xx: full_residuals(xx, inlier)))(x)
     next_prior = VIPrior(Rwb=st.Rwb, pwb=st.pwb, vel=st.vel, bias=st.bias, H=J.T @ J,
                          valid=torch.ones((), dtype=torch.bool, device=dev))
     return st, inlier, inlier.sum(), next_prior
@@ -315,6 +316,8 @@ class PoseInertialGraph:
                 pose_inertial_optimize(cam, *static, None)
         torch.cuda.current_stream().wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        # thread_local: a mapping worker's allocations and syncs on its own
+        # stream, at the same time, do not break the capture
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             out = pose_inertial_optimize(cam, *static, None)
         return [t for part in static for t in part], graph, out

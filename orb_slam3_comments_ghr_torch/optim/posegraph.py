@@ -28,6 +28,7 @@ import torch
 from torch.func import jacfwd, vmap
 
 from ..ops import lie
+from ..utils.device import forward_ad_locked
 
 
 class PoseGraphProblem(NamedTuple):
@@ -71,7 +72,8 @@ def _residual_and_value(xi_i, xi_j, *args):
     return r, r
 
 
-_edge_jacobians = vmap(jacfwd(_residual_and_value, argnums=(0, 1), has_aux=True))
+_edge_jacobians = forward_ad_locked(vmap(jacfwd(_residual_and_value, argnums=(0, 1),
+                                                has_aux=True)))
 
 
 def _edge_blocks(prob: PoseGraphProblem, s, R, t):

@@ -26,6 +26,7 @@ import torch
 from torch.func import jacfwd
 
 from ..ops import cameras, lie
+from ..utils.device import forward_ad_locked
 
 RANSAC_ITERS = 256
 CHI2_SIM3 = 10.0
@@ -161,7 +162,7 @@ def optimize_sim3(cam: cameras.Camera, s0, R0, t0, p1, uv1, level1, p2, uv2, lev
         r = residuals(xi)
         return r, r
 
-    jac_and_value = jacfwd(both, has_aux=True)
+    jac_and_value = forward_ad_locked(jacfwd(both, has_aux=True))
     eye7 = torch.eye(7, dtype=p1.dtype, device=p1.device)
     xi = torch.zeros(7, dtype=p1.dtype, device=p1.device)
     inlier = valid

@@ -35,6 +35,7 @@ import torch
 from torch.func import jacfwd, vmap
 
 from ..ops import cameras, lie
+from ..utils.device import forward_ad_locked
 from . import ba, robust
 from . import imu as imu_mod
 
@@ -150,7 +151,7 @@ def _inertial_terms(prob: VIBAProblem, Rwb, pwb, vel, bias, jacobians: bool = Tr
     r = _mv(Lt, _factor_residual(z, z, *args)) * m[:, None]
     if not jacobians:
         return r
-    Ji, Jj = vmap(jacfwd(_factor_residual, argnums=(0, 1)))(z, z, *args)
+    Ji, Jj = forward_ad_locked(vmap(jacfwd(_factor_residual, argnums=(0, 1))))(z, z, *args)
     return r, (Lt @ Ji) * m[:, None, None], (Lt @ Jj) * m[:, None, None]
 
 

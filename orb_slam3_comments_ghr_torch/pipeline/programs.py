@@ -18,7 +18,9 @@ The projection searches of tracking and fuse go through `window_match`, the
 hand-written kernel on CUDA tensors.
 
 PyTorch runs eagerly, so there is no jit and `track_only` is
-`track_against_points` itself. Everything runs on the device of its inputs.
+`track_against_points` itself; the deep pipeline seeds it with
+`chain_seed` from the previous frame's result on the device. Everything
+runs on the device of its inputs.
 """
 
 from __future__ import annotations
@@ -199,6 +201,15 @@ def extract_stereo_only(
                                          img_r.to(torch.float32), scale=scale)
     fl = fl._replace(u_right=u_right, depth=depth)
     return _undistorted(extract_cam, fl) if undistort else fl
+
+
+def chain_seed(prev_R, prev_t, prev_n, vR, vt, R0, t0, min_matches: int):
+    """Pose seed of the deep pipeline: the previous frame's track result,
+    still on the device, advanced one velocity step (vR, vt), where that
+    frame tracked at least `min_matches` inliers; else the host prediction
+    (R0, t0). A few element-wise operations, with no host round trip."""
+    good = prev_n >= min_matches
+    return torch.where(good, vR @ prev_R, R0), torch.where(good, vR @ prev_t + vt, t0)
 
 
 def extract_and_track_stereo(

@@ -1,7 +1,7 @@
 """Host tracking state machine.
 
-Port of `orb_slam3_comments_ghr_tpu/pipeline/tracker.py` without its
-deep-pipeline branches: the OK / RECENTLY_LOST / LOST ladder
+Port of `orb_slam3_comments_ghr_tpu/pipeline/tracker.py`: the OK /
+RECENTLY_LOST / LOST ladder
 (Tracking.h:133-142, Tracking.cc:2009 Track()), two-view initialization
 (monocular) or depth-seeded initialization (stereo and RGB-D), keyframe
 decision, the reference-keyframe fallback and relocalization; with an IMU,
@@ -10,6 +10,13 @@ pose refinement and dead reckoning while recently lost. The map stays host
 numpy; extraction, matching, pose LM, preintegration, two-view RANSAC, PnP
 and BA run on the tracker's device: the card unless the caller passes
 `device="cpu"`. A tracked frame comes back to the host in one packed copy.
+
+For the deep pipeline (`SLAM.track_*_pipelined`) `prepare_frame(steps=)`
+predicts `steps` frames ahead of the bookkeeping, the frame context is
+captured and restored around it, and `track` takes the frame's result and
+features already on the host. With asynchronous mapping `queue_probe`
+gives the mapper's queue length (KeyframesInQueue), which the keyframe
+decision reads.
 """
 
 from __future__ import annotations
@@ -65,11 +72,14 @@ def _np_feats(feats: Features) -> dict:
     return out
 
 
-def _fetch_track(res: programs.TrackResult, close: Optional[torch.Tensor] = None):
+def _fetch_track(res: programs.TrackResult, close=None):
     """A device TrackResult as numpy, in one device->host copy (every value
     fits float32 exactly: indices < 2^24). `close` (stereo / RGB-D: which
     features have a close depth, (N,) bool) rides in the same copy. Returns
-    (TrackResult, close as numpy or None)."""
+    (TrackResult, close as numpy or None). A result already on the host
+    (the deep pipeline's) comes with its `close` on the host too."""
+    if isinstance(res.R, np.ndarray):
+        return _host_track(res), close
     L = res.match_feat.shape[0]
     f32 = torch.float32
     extra = [] if close is None else [close.to(f32)]
@@ -84,6 +94,23 @@ def _fetch_track(res: programs.TrackResult, close: Optional[torch.Tensor] = None
         inlier=flat[13 + L:13 + 2 * L] > 0.5,
         visible=flat[13 + 2 * L:end] > 0.5,
     ), (None if close is None else flat[end:] > 0.5)
+
+
+def host_features(feats: Features) -> dict:
+    """The fields the map keeps of a Features tuple of numpy arrays (as
+    `utils.fetch` brings them home), in `_np_feats`' form."""
+    out = {k: np.ascontiguousarray(getattr(feats, k)) for k in _FEATURE_FIELDS}
+    out["desc"] = out["desc"].view(np.uint32)
+    out["valid"] = out["valid"].astype(bool)
+    return out
+
+
+def _host_track(res: programs.TrackResult) -> programs.TrackResult:
+    """A TrackResult of numpy arrays in `_fetch_track`'s form."""
+    return programs.TrackResult(
+        R=np.asarray(res.R, np.float32), t=np.asarray(res.t, np.float32),
+        n_inliers=int(res.n_inliers), match_feat=np.asarray(res.match_feat, np.int32),
+        inlier=np.asarray(res.inlier, bool), visible=np.asarray(res.visible, bool))
 
 
 def _seed(generator: torch.Generator, rng: np.random.Generator) -> torch.Generator:
@@ -143,7 +170,17 @@ class Tracker:
         self._prepared_ts = None
         self._prepared = None  # (lp, ids, R0, t0) of the prepared frame
         self._precomputed = None
+        self._host = None  # the current frame's features on the host, when given
         self._lp_cache = None  # (key, lp, ids) of the last local-point view
+        self._view_version = 0  # the map version of the last view taken
+        # the mapping worker, when mapping runs on one (set by the system):
+        # its queue's length (KeyframesInQueue, Tracking.cc:3904), whether
+        # it is mapping a keyframe (!AcceptKeyFrames) and InterruptBA
+        self.queue_probe = None
+        self.mapper_busy = None
+        self.interrupt_ba = None
+        self.n_lost_resets = 0   # young or uninitialized maps reset when lost
+        self.n_submap_spawns = 0  # new sub-maps opened when lost
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), device=self.device)
@@ -160,18 +197,21 @@ class Tracker:
         return out
 
     # ---------------------------------------------------------------- public
-    def prepare_frame(self, timestamp: float):
+    def prepare_frame(self, timestamp: float, steps: int = 1):
         """What the fused per-frame program needs: timestamp fault handling,
         pose prediction and the local point view. Returns (ready, lp, ids,
-        R0, t0); ready=False means init / relocalization / wide search."""
+        R0, t0); ready=False means init / relocalization / wide search.
+        `steps` is the horizon of the constant-velocity prediction: the deep
+        pipeline prepares frame N while the bookkeeping has reached frame
+        N - steps."""
         self._run_frame_prologue(timestamp)
         self._prepared_ts = timestamp
         if self.state != OK or self.last_kf < 0:
             return False, None, None, None, None
-        R0, t0 = self._predict_pose()
+        R0, t0 = self._predict_pose(steps=steps)
         self._last_prediction = (R0.copy(), t0.copy())
         lp, ids = self._local_points_view()
-        self._prepared = (lp, ids, R0, t0)
+        self._prepared = (lp, ids, R0, t0, self._view_version)
         self._prepared_th = self._search_th()
         return True, lp, ids, self._tensor(R0), self._tensor(t0)
 
@@ -189,6 +229,15 @@ class Tracker:
         if self.velocity is None:
             return 6.0
         return 1.0
+
+    def capture_frame_context(self):
+        """The state prepare_frame leaves for its frame, so that the deep
+        pipeline can prepare later frames before this one is tracked;
+        restore_frame_context puts it back right before `track`."""
+        return self._prepared_ts, self._prepared, self._pre_frame
+
+    def restore_frame_context(self, ctx):
+        self._prepared_ts, self._prepared, self._pre_frame = ctx
 
     def _run_frame_prologue(self, timestamp: float):
         self.pending_kf = None
@@ -209,7 +258,9 @@ class Tracker:
     def track(self, feats: Features, timestamp: float, precomputed=None) -> Optional[np.ndarray]:
         """Process one frame's features; returns 4x4 Tcw or None if lost.
         `precomputed` is the (res,) of the fused program run against the
-        arrays from prepare_frame."""
+        arrays from prepare_frame; the deep pipeline passes (res, prepared,
+        features), the result and the features on the host (`host_features`)
+        and the frame's (lp, ids, R0, t0)."""
         self.frame_id += 1
         self.last_feats = feats
         if self._prepared_ts != timestamp:
@@ -469,28 +520,58 @@ class Tracker:
         covisibility neighbourhood and its 3 temporal predecessors
         (UpdateLocalKeyFrames/Points, Tracking.cc:4250,4206), padded to the
         static cap. The view depends only on (map version, reference KF),
-        so frames between keyframes reuse the uploaded tensors."""
+        so frames between keyframes reuse the uploaded tensors. It is taken
+        under the map's lock, against a mapping worker's write-backs (torn
+        views otherwise); `_view_version` is the map version it was taken
+        at, which `_create_new_kf` checks its ids against."""
         m = self.map
         cap = self.cfg.local_points_cap
-        key = (m.version, self.last_kf, cap)
-        if self._lp_cache is not None and self._lp_cache[0] == key:
-            return self._lp_cache[1], self._lp_cache[2]
-        kfs = [self.last_kf] + m.covisible_kfs(self.last_kf, k=10, min_weight=5)
-        k = self.last_kf
-        for _ in range(3):
-            k = m.kf_prev[k] if k >= 0 else -1
-            if k >= 0:
-                kfs.append(int(k))
-        ids = m.local_point_ids(np.unique(kfs), cap)
-        lp = convert.local_points_from_map(m, ids, cap, self.device)
+        with m.lock:
+            key = (m.version, self.last_kf, cap)
+            self._view_version = m.version
+            if self._lp_cache is not None and self._lp_cache[0] == key:
+                return self._lp_cache[1], self._lp_cache[2]
+            kfs = [self.last_kf] + m.covisible_kfs(self.last_kf, k=10, min_weight=5)
+            k = self.last_kf
+            for _ in range(3):
+                k = m.kf_prev[k] if k >= 0 else -1
+                if k >= 0:
+                    kfs.append(int(k))
+            ids = m.local_point_ids(np.unique(kfs), cap)
+            lp = convert.local_points_from_map(m, ids, cap, self.device)
         self._lp_cache = (key, lp, ids)
         return lp, ids
+
+    def _track_again(self, feats):
+        """A keyframe is wanted from a frame tracked on a local view that a
+        mapping worker has changed since (taken before the frame's features
+        were extracted, or, in the deep pipeline, frames earlier): the frame
+        is tracked again from its pose against the local map of now, as
+        TrackLocalMap searches the local map of the moment (Tracking.cc:3571),
+        so that the keyframe decision and the new keyframe's points come
+        from the map the worker has built. On a stale view a keyframe made
+        right after the worker mapped its predecessor missed the
+        predecessor's new points, and with its few points none came after it
+        (ROADMAP C16; inline the view is never stale). Returns (res, ids,
+        view version), or None when the new tracking holds too few
+        inliers."""
+        lp, ids = self._local_points_view()
+        res, _ = _fetch_track(programs.track_against_points(
+            self.cam, feats, lp, self._tensor(self.last_R), self._tensor(self.last_t),
+            th=self._search_th(), n_levels=self.cfg.n_levels, scale=self.cfg.scale_factor))
+        if res.n_inliers < self.cfg.min_track_matches:
+            return None
+        return res, ids, self._view_version
 
     def _imu_ready(self) -> bool:
         return (self.imu is not None and self.map.map_imu_init.get(self.map.active_map, False)
                 and self._pre_frame is not None)
 
-    def _predict_pose(self) -> tuple[np.ndarray, np.ndarray]:
+    def _predict_pose(self, steps: int = 1) -> tuple[np.ndarray, np.ndarray]:
+        """The pose predicted for the frame `steps` frames after the last
+        tracked one: the IMU prediction (whose preintegration already spans
+        up to the frame), else `steps` constant-velocity steps, else the
+        last pose."""
         if self._imu_ready():
             # dead-reckon the body state from the last frame (PredictStateIMU);
             # the body frame is the camera's here, as in the JAX package
@@ -504,12 +585,17 @@ class Tracker:
             Rcw = Rp.T
             return Rcw.copy(), (-Rcw @ pp).copy()
         if self.velocity is not None:
-            T = self.velocity @ self._current_pose()
+            T = self._current_pose()
+            for _ in range(max(1, steps)):
+                T = self.velocity @ T
             return T[:3, :3].copy(), T[:3, 3].copy()
         return self.last_R.copy(), self.last_t.copy()
 
     def _track_frame(self, feats: Features, timestamp: float) -> bool:
         cfg = self.cfg
+        self._host = None
+        if self._precomputed is not None and self.state == OK and len(self._precomputed) > 1:
+            self._host = self._precomputed[2]
         close = None if cfg.is_mono else self._close_features(feats)
         # the previous frame's pose, read before the reference-keyframe
         # fallback can overwrite last_R / last_t: the velocities below are
@@ -519,12 +605,14 @@ class Tracker:
         prev_R, prev_t = self.last_R.copy(), self.last_t.copy()
         if self._precomputed is not None and self.state == OK:
             res = self._precomputed[0]
-            lp, ids, R0, t0 = self._prepared
+            lp, ids, R0, t0, view_v = (self._precomputed[1] if len(self._precomputed) > 1
+                                       else self._prepared)
             self._precomputed = None
         else:
             R0, t0 = self._predict_pose()
             self._last_prediction = (R0.copy(), t0.copy())
             lp, ids = self._local_points_view()
+            view_v = self._view_version
             res = programs.track_against_points(
                 self.cam, feats, lp, self._tensor(R0), self._tensor(t0),
                 th=self._search_th(), n_levels=cfg.n_levels, scale=cfg.scale_factor,
@@ -543,6 +631,7 @@ class Tracker:
             if not self._track_reference_kf(feats):
                 return False
             lp, ids = self._local_points_view()
+            view_v = self._view_version
             res, _ = _fetch_track(programs.track_against_points(
                 self.cam, feats, lp, self._tensor(self.last_R), self._tensor(self.last_t),
                 th=3.0, n_levels=cfg.n_levels, scale=cfg.scale_factor,
@@ -578,9 +667,17 @@ class Tracker:
         # while recently lost (mInsertKFsLost), when the map must grow back
         insert_ok = ok_state or (cfg.is_inertial and self.state == RECENTLY_LOST
                                  and n_inl >= cfg.min_track_matches)
-        if (not self.localization_only and insert_ok
-                and self._need_new_kf(n_inl, timestamp, n_ct, n_cu)):
-            self._create_new_kf(feats, timestamp, res, ids)
+        want_kf = (not self.localization_only and insert_ok
+                   and self._need_new_kf(n_inl, timestamp, n_ct, n_cu))
+        if want_kf and self.queue_probe is not None and view_v != m.version:
+            again = self._track_again(feats)
+            if again is not None:
+                res, ids, view_v = again
+                if not cfg.is_mono:
+                    n_ct, n_cu = self._close_point_counts(close, res, ids)
+                want_kf = self._need_new_kf(res.n_inliers, timestamp, n_ct, n_cu)
+        if want_kf:
+            self._create_new_kf(feats, timestamp, res, ids, view_v)
         return ok_state
 
     def _vi_refine(self, feats: Features, res, lp: programs.LocalPoints, timestamp: float):
@@ -691,12 +788,16 @@ class Tracker:
         self.last_t = t.cpu().numpy()
         return True
 
-    def _close_features(self, feats: Features) -> torch.Tensor:
-        """(N,) bool on the device: valid features with a measured depth
-        below ThDepth (no limit when the camera has no baseline)."""
+    def _close_features(self, feats: Features):
+        """(N,) bool: valid features with a measured depth below ThDepth (no
+        limit when the camera has no baseline); on the device, or on the
+        host when the frame's features came home already."""
         th_d = self.cam.baseline * self.cfg.depth_th_factor
         if th_d <= 0:
             th_d = np.inf
+        if self._host is not None:
+            f = self._host
+            return f["valid"] & (f["depth"] > 0) & (f["depth"] < th_d)
         return feats.valid & (feats.depth > 0) & (feats.depth < th_d)
 
     def _close_point_counts(self, close: np.ndarray, res, ids) -> tuple[int, int]:
@@ -717,9 +818,13 @@ class Tracker:
         0.75 for stereo / RGB-D, or the close-point deficit). With an IMU,
         one keyframe every 0.25 s before the IMU is initialized, and after
         it c3 (0.5 s since the last KF) and, monocular, c4 (15 < inliers <
-        75, or recently lost). The mapper runs inline, so it is always idle:
-        its queue is empty, and the reference's busy-mapper branch (stereo /
-        RGB-D may queue up to 3 keyframes) never applies."""
+        75, or recently lost). c1b needs an idle mapper: none waits in its
+        queue (`queue_probe`, asynchronous mapping) and none is being
+        mapped (`mapper_busy`). When a keyframe is wanted from a busy
+        mapper, its local BA is interrupted (`interrupt_ba`), and monocular
+        inserts none, stereo / RGB-D one while fewer than 3 wait
+        (Tracking.cc:3896-3910). A mapper that runs inline is always
+        idle."""
         cfg = self.cfg
         m = self.map
         nkfs = len(m.kf_ids())
@@ -729,6 +834,9 @@ class Tracker:
             return False
         if cfg.is_inertial and not m.map_imu_init.get(m.active_map, False):
             return (timestamp - self.last_kf_time) >= 0.25  # Tracking.cc:3733-3736
+        queue_len = self.queue_probe() if self.queue_probe is not None else 0
+        mapper_idle = queue_len == 0 and not (self.mapper_busy is not None
+                                              and self.mapper_busy())
         mids = m.kf_feat_mp[self.last_kf]
         mids = mids[mids >= 0]
         n_obs = m.mp_n_obs[mids] if cfg.is_mono else self._stereo_weighted_obs(mids)
@@ -736,12 +844,19 @@ class Tracker:
         th_ref = (cfg.kf_ref_ratio if cfg.is_mono else 0.75) if nkfs >= 2 else 0.4
         need_close = n_close_tracked < 100 and n_close_untracked > 70
         c1a = self.frames_since_kf >= cfg.max_frames_between_kf
-        c1b = self.frames_since_kf >= cfg.min_frames_between_kf
+        c1b = self.frames_since_kf >= cfg.min_frames_between_kf and mapper_idle
         c1c = not cfg.is_mono and (n_inl < ref_matches * 0.25 or need_close)
         c2 = (n_inl < ref_matches * th_ref or need_close) and n_inl > 15
         c3 = cfg.is_inertial and (timestamp - self.last_kf_time) >= 0.5
         c4 = cfg.sensor == IMU_MONOCULAR and ((15 < n_inl < 75) or self.state == RECENTLY_LOST)
-        return ((c1a or c1b or c1c) and c2) or c3 or c4
+        if not (((c1a or c1b or c1c) and c2) or c3 or c4):
+            return False
+        if mapper_idle:
+            return True
+        if self.interrupt_ba is not None:
+            self.interrupt_ba()
+        # a busy mapper: stereo / RGB-D may still queue up to 3 keyframes
+        return not cfg.is_mono and queue_len < 3
 
     def _stereo_weighted_obs(self, mps: np.ndarray) -> np.ndarray:
         """MapPoint::Observations() of each point as the reference counts it
@@ -755,15 +870,23 @@ class Tracker:
         stereo = (kf >= 0) & (fi >= 0) & (m.kf_feat_ur[np.maximum(kf, 0), np.maximum(fi, 0)] >= 0)
         return m.mp_n_obs[mps] + stereo.sum(axis=1)
 
-    def _create_new_kf(self, feats, timestamp, res, ids):
+    def _create_new_kf(self, feats, timestamp, res, ids, view_version: int):
+        """CreateNewKeyFrame: a keyframe from the tracked frame, associated
+        with the points it tracked. `ids` are the local view's, taken at map
+        version `view_version`: a mapping worker may since have culled some
+        of them and reused their slots, so under the map's lock only points
+        still in the map and made no later than the view are associated
+        (inline all are; ROADMAP C15)."""
         m = self.map
-        f = _np_feats(feats)
-        kf = m.add_keyframe(self.last_R, self.last_t, f, timestamp,
-                            parent=self.last_kf, prev=self.last_kf)
-        # associate the tracked points with this KF's features
+        f = _np_feats(feats) if self._host is None else self._host
+        ids = np.asarray(ids, np.int64)
         match_feat = res.match_feat[: len(ids)]
-        j = np.nonzero(res.inlier[: len(ids)] & (match_feat >= 0))[0]
-        m.add_observations(np.asarray(ids)[j], kf, match_feat[j])
+        with m.lock:
+            kf = m.add_keyframe(self.last_R, self.last_t, f, timestamp,
+                                parent=self.last_kf, prev=self.last_kf)
+            same = m.mp_valid[ids] & (m.mp_born[ids] <= view_version)
+            j = np.nonzero(res.inlier[: len(ids)] & (match_feat >= 0) & same)[0]
+            m.add_observations(ids[j], kf, match_feat[j])
         if not self.cfg.is_mono:
             # stereo / RGB-D: new points from the measured depths
             self._spawn_depth_points(kf, f)
@@ -824,8 +947,10 @@ class Tracker:
         """LocalPoints view around a relocalization candidate keyframe."""
         m = self.map
         cap = self.cfg.local_points_cap
-        ids = m.local_point_ids(np.unique([kf] + m.covisible_kfs(kf, k=10, min_weight=5)), cap)
-        return convert.local_points_from_map(m, ids, cap, self.device), ids
+        with m.lock:
+            ids = m.local_point_ids(np.unique([kf] + m.covisible_kfs(kf, k=10, min_weight=5)),
+                                    cap)
+            return convert.local_points_from_map(m, ids, cap, self.device), ids
 
     def _handle_lost(self):
         """Recovery ladder tail (Tracking.cc:2299-2322): a young map (< 10
@@ -836,6 +961,7 @@ class Tracker:
         m = self.map
         imu_uninit = self.cfg.is_inertial and not m.map_imu_init.get(int(m.active_map), False)
         if len(m.kf_ids(m.active_map)) < 10 or imu_uninit:
+            self.n_lost_resets += 1
             for mp in m.mp_ids(m.active_map):
                 m.remove_point(int(mp))
             for kf in m.kf_ids(m.active_map):
@@ -846,6 +972,7 @@ class Tracker:
             m.map_viba1[m.active_map] = False
             m.map_viba2[m.active_map] = False
         else:
+            self.n_submap_spawns += 1
             m.create_new_map()
         self.state = NOT_INITIALIZED
         self._init_feats = None

@@ -12,10 +12,16 @@ dense (n_words,) vector the tracker/loop-closer already hold and touch only
 the inverted-file lists, exactly like the reference.
 
 Copied from `orb_slam3_comments_ghr_tpu/retrieval/database.py`; it imports
-the port's vocabulary, whose descent runs on the vocabulary's device.
+the port's vocabulary, whose descent runs on the vocabulary's device. The
+tables are host numpy; with asynchronous mapping the tracker adds and
+queries while the mapper erases and the loop closer queries, so every
+change and query holds the database's lock (the descent itself runs
+outside it).
 """
 
 from __future__ import annotations
+
+import threading
 
 import numpy as np
 
@@ -39,6 +45,7 @@ class KeyFrameDatabase:
         # per-feature word/node ids for BoW-guided matching
         self.kf_word: dict[int, np.ndarray] = {}
         self.kf_node: dict[int, np.ndarray] = {}
+        self.lock = threading.RLock()
 
     def _ensure_capacity(self, kf: int):
         n = len(self.present)
@@ -51,15 +58,18 @@ class KeyFrameDatabase:
         )
 
     def add(self, kf: int, descs: np.ndarray, valid: np.ndarray):
+        # on-device tree descent (TemplatedVocabulary::transform, :136-163)
+        word, node = self.voc.transform_on_device(descs, valid)
+        with self.lock:
+            return self._add(kf, word, node)
+
+    def _add(self, kf: int, word: np.ndarray, node: np.ndarray):
         self._ensure_capacity(kf)
         if kf in self.kf_words:  # re-add after erase: purge stale postings
             for w in self.kf_words[kf]:
                 lst = self.inv.get(int(w))
                 if lst is not None and kf in lst:
                     lst.remove(kf)
-        # jitted on-device tree descent (TemplatedVocabulary::transform,
-        # :136-163, as one XLA program — SURVEY §2.2)
-        word, node = self.voc.transform_on_device(descs, valid)
         w = word[word >= 0]
         uw, counts = (np.unique(w, return_counts=True) if len(w)
                       else (np.zeros(0, np.int64), np.zeros(0, np.int64)))
@@ -79,9 +89,9 @@ class KeyFrameDatabase:
         return word, node
 
     def erase(self, kf: int):
-        if kf >= len(self.present):
-            return
-        self.present[kf] = False
+        with self.lock:
+            if kf < len(self.present):
+                self.present[kf] = False
 
     # ----------------------------------------------------------------- query
     def query_vector(self, kf: int) -> np.ndarray:
@@ -89,8 +99,9 @@ class KeyFrameDatabase:
         of DetectNBestCandidates — the query is always one vector, so dense
         is fine; the database side stays sparse)."""
         v = np.zeros(self.n_words, np.float32)
-        if kf in self.kf_words:
-            v[self.kf_words[kf]] = self.kf_weights[kf]
+        with self.lock:
+            if kf in self.kf_words:
+                v[self.kf_words[kf]] = self.kf_weights[kf]
         return v
 
     def _sparse_score(self, kf: int, query_bow: np.ndarray) -> float:
@@ -127,6 +138,12 @@ class KeyFrameDatabase:
         final_acc_cut, when set, keeps every group above cut*bestAccScore
         (the DetectRelocalizationCandidates 0.75 rule,
         KeyFrameDatabase.cc:920)."""
+        with self.lock:
+            return self._detect_candidates(query_bow, exclude, map_state, n_best,
+                                           min_score_cut, final_acc_cut)
+
+    def _detect_candidates(self, query_bow, exclude, map_state, n_best, min_score_cut,
+                           final_acc_cut):
         qwords = np.nonzero(query_bow > 0)[0]
         common = self._common_words(qwords)
         common[~self.present] = 0

@@ -15,11 +15,15 @@ the vocabulary's `device` for numpy input), with the port's SWAR popcount.
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
 from ..ops.matching import popcount32
 from ..utils.device import resolve_device
+
+_TABLES_LOCK = threading.Lock()
 
 _POPCNT8 = np.array([bin(i).count("1") for i in range(256)], np.uint8)
 
@@ -151,11 +155,16 @@ class Vocabulary:
         return np.where(valid, node, -1), np.where(valid, mid, -1)
 
     def _device_tables(self, device: torch.device) -> list[torch.Tensor]:
-        if device not in self._tables:
-            self._tables[device] = [
-                torch.from_numpy(np.ascontiguousarray(lv).view(np.int32)).to(device)
-                for lv in self.levels
-            ]
+        """The levels as int32 tables on `device`, built once. Built on one
+        thread's stream and read from others' (asynchronous mapping): the
+        build finishes before any reader can see them."""
+        with _TABLES_LOCK:
+            if device not in self._tables:
+                tables = [torch.from_numpy(np.ascontiguousarray(lv).view(np.int32)).to(device)
+                          for lv in self.levels]
+                if device.type == "cuda":
+                    torch.cuda.current_stream(device).synchronize()
+                self._tables[device] = tables
         return self._tables[device]
 
     def transform_on_device(self, descs, valid):

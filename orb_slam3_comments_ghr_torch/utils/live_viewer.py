@@ -19,8 +19,9 @@ published snapshot, so the tracking loop pays only a pointer swap per frame
 (`publish`). All map reads take MapState.lock for a consistent view.
 
 Port of `orb_slam3_comments_ghr_tpu/utils/live_viewer.py`: the same page,
-endpoints and JSON; the menu calls the port's `SLAM` methods. Mapping and
-the whole-map BA run inline in the port, so `gba_running` is always false.
+endpoints and JSON; the menu calls the port's `SLAM` methods.
+`gba_running` is true while a whole-map BA runs on its thread (asynchronous
+mapping).
 
 Usage:
     viewer = LiveViewer(slam, port=8765); viewer.start()
@@ -172,7 +173,7 @@ class LiveViewer:
             "active_map": int(s.map.active_map),
             "loops": s.loopcloser.n_loops if s.loopcloser else 0,
             "merges": s.loopcloser.n_merges if s.loopcloser else 0,
-            "gba_running": False,  # the whole-map BA runs inline
+            "gba_running": bool(s.loopcloser and s.loopcloser.gba_running),
             "localization_only": bool(tr.localization_only),
             "pose_Tcw_3x4": pose,
         }

@@ -12,10 +12,12 @@ stage's time is the time to enqueue its work, unless the stage itself
 fetches a result to the host. `track_map` (the tracker's frame) and the
 mapper's `mp_create`, `fuse` and `local_ba` each fetch their result in one
 copy, so their times include the device's; `mp_cull` and `kf_cull` are host
-work."""
+work. Stages come from the tracking thread and, with asynchronous
+mapping, from the mapping worker at once: a lock keeps every sample."""
 
 from __future__ import annotations
 
+import threading
 import time
 from collections import defaultdict
 from contextlib import contextmanager
@@ -32,6 +34,7 @@ class StageTimer:
     def __init__(self):
         self.samples: dict[str, list[float]] = defaultdict(list)
         self.enabled = True
+        self._lock = threading.Lock()
 
     @contextmanager
     def stage(self, name: str):
@@ -42,13 +45,17 @@ class StageTimer:
         try:
             yield
         finally:
-            self.samples[name].append((time.perf_counter() - t0) * 1000.0)
+            ms = (time.perf_counter() - t0) * 1000.0
+            with self._lock:
+                self.samples[name].append(ms)
 
     def stats(self) -> dict[str, dict]:
         import numpy as np
 
+        with self._lock:
+            samples = {k: list(v) for k, v in self.samples.items()}
         out = {}
-        for k, v in self.samples.items():
+        for k, v in samples.items():
             a = np.asarray(v)
             out[k] = {
                 "n": len(a), "mean_ms": float(a.mean()),

@@ -1,7 +1,7 @@
 """Run chosen phases of `chip_smoke.py` from the tree of a checkout, on the
 card, to compare two versions of the port in one call.
 
-    python scripts/smoke_phases.py [--tree DIR] --phases 7 8 9 10a 10b
+    python scripts/smoke_phases.py [--tree DIR] [--keep-going] --phases 7 8 9 10a 10b
 
 DIR (default: this checkout) is the root of a checkout, for example an
 earlier commit unpacked by `git archive <commit> | tar -x -C DIR` into a
@@ -15,7 +15,11 @@ loop), 10b (the kidnap and merge), 11 (inertial loop closing: (a), (b) and
 (c) on (a)'s map; from a tree that has it), 12 (the fisheye camera: (a)
 mono, (b) stereo, (c) stereo-inertial; from a tree that has it), 13 (the
 entry points: phase 4's run for its map and atlas, then (a)-(e); from a
-tree that has it). Needs one CUDA card.
+tree that has it), 14 (asynchronous mapping and the deep pipeline: (a)-(d);
+from a tree that has it; 14a and 14d run its (a) or (d) alone). A phase
+named again runs again (its result under "NAME#2", ...); with
+`--keep-going` a phase that fails is recorded with its error and the next
+one runs, and the exit code is 1 if any failed. Needs one CUDA card.
 """
 
 import argparse
@@ -26,7 +30,8 @@ import time
 
 PHASES = {"7": "phase7_stereo_inertial", "8": "phase8_rgbd_inertial",
           "9": "phase9_mono_inertial", "10a": "phase10_feature_loop", "10b": "phase10_merge",
-          "11": None, "12": None, "13": None}
+          "11": None, "12": None, "13": None, "14": None, "14a": "phase14_async_mono",
+          "14d": "phase14_background_gba"}
 
 
 def phase11(chip_smoke, window_match, device):
@@ -70,10 +75,18 @@ def phase13(chip_smoke, window_match, device):
     return launches + n, calls, out
 
 
+def phase14(chip_smoke, window_match, device):
+    """Phase 14's runs, as chip_smoke's group process runs them."""
+    paths, _, out = chip_smoke.phase_group_async(window_match, device, None)
+    return sum(p["launches"] for p in paths.values()), paths, out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", default=os.path.join(os.path.dirname(__file__), ".."))
     ap.add_argument("--phases", nargs="+", choices=tuple(PHASES), required=True)
+    ap.add_argument("--keep-going", action="store_true",
+                    help="record a failing phase and run the next one")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.tree))
     import torch
@@ -87,17 +100,28 @@ def main(argv=None) -> int:
     print(chip_smoke.card_line())
     window_match.build()
     device = torch.device("cuda", 0)
-    out = {}
+    out, failed = {}, 0
     for phase in args.phases:
+        key = phase
+        while key in out:
+            key = f"{phase}#{int(key.partition('#')[2] or 1) + 1}"
         t0 = time.perf_counter()
-        run = {"11": phase11, "12": phase12, "13": phase13}.get(phase)
-        result = (run(chip_smoke, window_match, device) if run
-                  else getattr(chip_smoke, PHASES[phase])(window_match, device))
-        out[phase] = dict(seconds=time.perf_counter() - t0, launches=result[0], calls=result[1],
-                          result=result[-2] if phase == "7" else result[-1])
-        print(f"phase {phase} passed in {out[phase]['seconds']:.1f} s")
+        run = {"11": phase11, "12": phase12, "13": phase13, "14": phase14}.get(phase)
+        try:
+            result = (run(chip_smoke, window_match, device) if run
+                      else getattr(chip_smoke, PHASES[phase])(window_match, device))
+        except Exception as e:
+            if not args.keep_going:
+                raise
+            failed += 1
+            out[key] = dict(seconds=time.perf_counter() - t0, failed=repr(e))
+            print(f"phase {key} FAILED in {out[key]['seconds']:.1f} s: {e!r}")
+            continue
+        out[key] = dict(seconds=time.perf_counter() - t0, launches=result[0], calls=result[1],
+                        result=result[-2] if phase == "7" else result[-1])
+        print(f"phase {key} passed in {out[key]['seconds']:.1f} s")
     print(json.dumps(out, default=str))
-    return 0
+    return 1 if failed else 0
 
 
 if __name__ == "__main__":

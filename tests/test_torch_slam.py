@@ -279,16 +279,19 @@ def test_parts_run_on_the_card_unless_told_otherwise(monkeypatch, part):
     {"dba_devices": 2},  # refused until ROADMAP A8 was ported
 ])
 def test_unported_options_raise(change):
-    """Async mapping is refused. Distributed BA is ported (A8): a SLAM with
-    dba_devices builds, and in one process has no ranks to shard over, so
-    its whole-map BA takes the single-device path, as the JAX package does
-    on one device."""
+    """Both options were refused until their slices came. Distributed BA is
+    ported (A8): a SLAM with dba_devices builds, and in one process has no
+    ranks to shard over, so its whole-map BA takes the single-device path,
+    as the JAX package does on one device. Async mapping is ported (A9): a
+    SLAM with it builds its worker thread and unbounded keyframe queue."""
     cfg = dataclasses.replace(tconfig.SlamConfig(enable_loop_closing=False), **change)
     if cfg.dba_devices:
         assert tsystem.SLAM(TCAM, cfg, device="cpu").mapper._dba_mesh() is None
         return
-    with pytest.raises(NotImplementedError):
-        tsystem.SLAM(TCAM, cfg, device="cpu")
+    slam = tsystem.SLAM(TCAM, cfg, device="cpu")
+    assert slam._map_worker.is_alive() and slam._map_queue.maxsize == 0
+    slam.shutdown()
+    assert slam.worker_errors == 0
 
 
 @pytest.mark.parametrize("sensor", [tconfig.IMU_MONOCULAR, tconfig.IMU_STEREO])

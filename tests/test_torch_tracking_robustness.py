@@ -1,9 +1,9 @@
 """Tracking robustness of the port on the CPU: the twins of
 `tests/test_tracking_robustness.py` (the reference-keyframe fallback, the
 NeedNewKeyFrame policy, the IMU pose published while recently lost), run
-by the port alone to the JAX test's bars. `test_mono_backpressure_blocks_insertion`
-has no twin yet: it sets the tracker's `queue_probe`, which comes with
-asynchronous mapping (ROADMAP A9).
+by the port alone to the JAX test's bars, all 8 cases
+(`test_mono_backpressure_blocks_insertion` sets the tracker's
+`queue_probe`, the mapping queue's length under asynchronous mapping).
 
 The JAX test runs its 40-frame ring sequence once per case; here it runs
 once per module. The keyframe-policy cases change tracker attributes only
@@ -44,6 +44,42 @@ def ring_run():
 def _tracker(sensor=0, **kw):
     return SLAM(CAM, SlamConfig(sensor=sensor, n_features=512, max_frames_between_kf=6, **kw),
                 device="cpu").tracker
+
+
+def test_mono_backpressure_blocks_insertion(ring_run, monkeypatch):
+    """Mono never inserts while the mapper's queue is not empty
+    (Tracking.cc:3904: mono needs an idle mapper)."""
+    slam, _, _ = ring_run
+    t = slam.tracker
+    ref_matches = int((t.map.kf_feat_mp[t.last_kf] >= 0).sum())
+    n_low = max(16, int(0.5 * ref_matches))  # c2 satisfied
+    monkeypatch.setattr(t, "frames_since_kf", 10)  # c1a satisfied
+    monkeypatch.setattr(t, "queue_probe", lambda: 0)
+    assert t._need_new_kf(n_low, timestamp=100.0)
+    monkeypatch.setattr(t, "queue_probe", lambda: 2)
+    assert not t._need_new_kf(n_low, timestamp=100.0)
+
+
+def test_busy_mapper_holds_mono_and_interrupts_its_ba(ring_run, monkeypatch):
+    """A keyframe being mapped makes the mapper busy (AcceptKeyFrames):
+    mono inserts none and interrupts the local BA, stereo inserts while
+    fewer than 3 wait (Tracking.cc:3896-3910)."""
+    slam, _, _ = ring_run
+    t = slam.tracker
+    ref_matches = int((t.map.kf_feat_mp[t.last_kf] >= 0).sum())
+    n_low = max(16, int(0.5 * ref_matches))
+    interrupts = []
+    monkeypatch.setattr(t, "frames_since_kf", 10)
+    monkeypatch.setattr(t, "queue_probe", lambda: 0)
+    monkeypatch.setattr(t, "interrupt_ba", lambda: interrupts.append(1))
+    monkeypatch.setattr(t, "mapper_busy", lambda: False)
+    assert t._need_new_kf(n_low, timestamp=100.0) and not interrupts
+    monkeypatch.setattr(t, "mapper_busy", lambda: True)
+    assert not t._need_new_kf(n_low, timestamp=100.0) and interrupts == [1]
+    monkeypatch.setattr(t.cfg, "sensor", 1)  # stereo
+    assert t._need_new_kf(n_low, timestamp=100.0, n_close_untracked=80)
+    monkeypatch.setattr(t, "queue_probe", lambda: 3)
+    assert not t._need_new_kf(n_low, timestamp=100.0, n_close_untracked=80)
 
 
 def test_no_insert_right_after_reloc(ring_run, monkeypatch):
