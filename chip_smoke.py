@@ -80,14 +80,24 @@ frames, per-frame times of both; (b) bench.py's mono pass (its config, 300
 frames) through `track_monocular_pipelined`; (c) stereo-inertial
 `track_stereo_pipelined`, the 60 frames of tests/test_stereo_pipelined.py
 and phase 7's 150, the tracker's VI-refinement graph captured and replayed
-beside the worker; (d) phase 10 (a)'s loop with the whole-map BA on its own
-thread, to phase 10 (a)'s bars.
-Phases 4-14 each count the window match's
+beside the worker, and phase 7's 150 frames pipelined inline and
+synchronous with the worker (these two in phases 7-9's process; phase 7
+runs them synchronous inline: the four modes' metric ATE are printed side
+by side); (d) phase 10 (a)'s loop
+with the whole-map BA on its own thread, to phase 10 (a)'s bars. Phase 15
+runs the tools users run (`orb_slam3_comments_ghr_torch/scripts`) on a
+stand-in EuRoC ground truth written from the JAX package's own estimate of
+MH01's motion in results/: (a) `run_gt_replay` on rendered features,
+mono, 600 frames; (b) `run_gt_replay` on rendered stereo images with the
+IMU and loop closing, 200 frames; (c) phase 10 (a)'s loop with the
+100k-word vocabulary; (d) `train_vocabulary` on the card, its file round
+trip, and `eval_vocabulary` of the 10k and 100k trees.
+Phases 4-15 each count the window match's
 launches from 0 (the loop closer's projection counts and fuses apart from
 the mapper's fuse; the tracker's and the worker's calls on per-thread
 caller stacks) and record its arguments on one call of each caller (a
 worker-thread fuse in phase 14);
-phases 7-9, 10, 11, 12 and 14 run in five processes of this
+phases 7-9, 10, 11, 12, 14 and 15 run in six processes of this
 script (`--phase-group`) beside the main one's phases 5, 6 and 13 (a)-(c),
 since every phase is bound by its host's launches and the card is idle
 most of the time; their output follows the main one's; after them, phase
@@ -1409,13 +1419,14 @@ def _check_launches(tag: str, launches: int, calls: dict):
         raise AssertionError(f"{tag}: {launches} launches for {sum(calls.values())} matcher calls")
 
 
-def phase10_feature_loop(wm_mod, device):
+def phase10_feature_loop(wm_mod, device, voc_path=None, tag="phase10 (a)"):
     """Run (a), the loop of tests/test_loopclosing.py through the port with
     loop closing on: 160 frames of 512 rendered features (ring world 13,
     an outward circle of 1.06 turns, 0.7 px noise), `track_features`.
     Fails unless a loop or merge closes, > 70 poses come back, the
     Sim(3)-aligned ATE is < 8 cm, every point is finite, and the window match
-    launched once per matcher call."""
+    launched once per matcher call. `voc_path` is `SlamConfig.voc_path`
+    (None: the shipped 10k-word tree); `tag` heads its lines."""
     from orb_slam3_comments_ghr_torch.ops import cameras
     from orb_slam3_comments_ghr_torch.system import SLAM
     from orb_slam3_comments_ghr_torch.utils import evaluation, synthetic
@@ -1426,7 +1437,7 @@ def phase10_feature_loop(wm_mod, device):
     feats = [synthetic.render_features(world, cam, R, t, n_feat=512, seed=1300 + i, noise_px=0.7,
                                        device=device)[0] for i, (R, t) in enumerate(poses)]
     slam = SLAM(cam, _loop_cfg(n_features=512, local_points_cap=2048, local_ba_points=2048,
-                               min_init_matches=60), device=device)
+                               min_init_matches=60, voc_path=voc_path), device=device)
     calls = {"tracking": 0, "init": 0, "fuse": 0, "loop_count": 0, "loop_fuse": 0}
     restore = _count_loop_matchers(wm_mod, slam, calls, {}, {})
     torch.cuda.synchronize()
@@ -1444,17 +1455,19 @@ def phase10_feature_loop(wm_mod, device):
     lc = slam.loopcloser
     ate = evaluation.ate_rmse(est, synthetic.gt_trajectory(poses), with_scale=True)
     finite = bool(np.isfinite(slam.map.mp_pos[slam.map.mp_ids()]).all())
-    print(f"phase10 (a) feature loop {PHASE10_FEATURE_FRAMES} frames: poses {len(est)}, loops "
+    print(f"{tag} feature loop {PHASE10_FEATURE_FRAMES} frames, a {slam.voc.n_words}-word "
+          f"vocabulary: poses {len(est)}, loops "
           f"{lc.n_loops}, merges {lc.n_merges}, keyframes {slam.n_keyframes()}, map points "
           f"{slam.n_map_points()}, Sim(3)-aligned ATE {ate * 1e3:.3f} mm, points finite {finite}, "
           f"state {slam.state}")
-    _check_launches("phase10 (a)", launches, calls)
+    _check_launches(tag, launches, calls)
     if lc.n_loops + lc.n_merges < 1 or len(est) <= 70 or not ate < 0.08 or not finite:
-        raise AssertionError("phase10 (a): no loop or merge, <= 70 poses, ATE >= 8 cm, or "
+        raise AssertionError(f"{tag}: no loop or merge, <= 70 poses, ATE >= 8 cm, or "
                              "a non-finite point")
     if calls["loop_count"] == 0 or calls["loop_fuse"] == 0:
-        raise AssertionError("phase10 (a): a loop-closer caller never ran")
+        raise AssertionError(f"{tag}: a loop-closer caller never ran")
     return launches, calls, dict(poses=len(est), loops=lc.n_loops, merges=lc.n_merges, ate_m=ate,
+                                 n_words=slam.voc.n_words,
                                  keyframes=slam.n_keyframes(), points=slam.n_map_points())
 
 
@@ -2561,8 +2574,20 @@ def phase_group_inertial(window_match, device, work):
     n, calls, vi_mono = phase9_mono_inertial(window_match, device)
     paths["mono-inertial"] = dict(calls, launches=n)
     print(f"phase9 passed in {time.perf_counter() - t0:.1f} s")
+    # two of phase 14 (c)'s four modes of phase 7's frames, in this process,
+    # which has the time (phase 7 runs the synchronous inline one, phase
+    # 14's process the pipelined one with the worker)
+    t0 = time.perf_counter()
+    modes = {}
+    for pipelined, worker, key in ((True, False, "stereo-inertial pipelined inline 150"),
+                                   (False, True, "stereo-inertial worker 150")):
+        n, calls, modes[key] = phase14_stereo_inertial(window_match, device, PHASE7_FRAMES,
+                                                       pipelined, worker)
+        paths[key] = dict(calls, launches=n)
+    print(f"phase14 (c) pipelined inline and synchronous with the worker passed in "
+          f"{time.perf_counter() - t0:.1f} s")
     return paths, recorded, {"stereo-inertial": vi_stereo, "rgbd-inertial": vi_rgbd,
-                             "mono-inertial": vi_mono, "stages": vi_stages}
+                             "mono-inertial": vi_mono, "stages": vi_stages, **modes}
 
 
 def phase_group_loop(window_match, device, work):
@@ -2645,10 +2670,11 @@ def _ms_stats(v) -> dict:
 
 
 def _watch_worker(slam) -> dict:
-    """Counts on an asynchronous SLAM's worker: keyframes it processed, and
-    the frames whose keyframe a busy mapper held back (the tracker would
-    have inserted one with an idle mapper: an empty queue, no keyframe
-    being mapped). Instance attributes: the run's end puts nothing back."""
+    """Counts on a SLAM's mapper: keyframes it processed, and (with
+    asynchronous mapping) the frames whose keyframe a busy mapper held back
+    (the tracker would have inserted one with an idle mapper: an empty
+    queue, no keyframe being mapped). Instance attributes: the run's end
+    puts nothing back."""
     seen = {"worker_keyframes": 0, "held_back": 0, "busy": 0}
     process = slam.mapper.process_keyframe
 
@@ -2665,7 +2691,7 @@ def _watch_worker(slam) -> dict:
     def probed(*args, **kwargs):
         t = slam.tracker
         out = need(*args, **kwargs)
-        if not out and (t.queue_probe() > 0 or t.mapper_busy()):
+        if not out and t.queue_probe is not None and (t.queue_probe() > 0 or t.mapper_busy()):
             hooks = t.queue_probe, t.mapper_busy, t.interrupt_ba
             t.queue_probe, t.mapper_busy, t.interrupt_ba = (lambda: 0), (lambda: False), None
             try:
@@ -2816,35 +2842,44 @@ def phase14_bench_mono(wm_mod, device):
                                  poses=len(slam.trajectory()))
 
 
-def phase14_stereo_inertial(wm_mod, device, n: int):
-    """(c) Stereo-inertial `track_stereo_pipelined` with async mapping over
-    the first n frames of `vi_sequence(n)` (scene 7, the right view b to the
-    right): n = 60 at tests/test_stereo_pipelined.py's config (768
-    features, local map and BA 2048, a keyframe every 5 frames) to its bars
-    (IMU initialized, > 45 poses, metric ATE < 15 cm); n = 150 at phase 7's
-    config to phase 7's bars (IMU initialized, >= 95 % tracked, metric ATE <
-    8 cm). Loop closing off, as both. The tracker's VI refinement must be
-    captured into its CUDA graph and replayed while the worker runs; fails
+PHASE14_MODES = {(True, True): "pipelined, worker", (True, False): "pipelined, inline",
+                 (False, True): "synchronous, worker", (False, False): "synchronous, inline"}
+
+
+def phase14_stereo_inertial(wm_mod, device, n: int, pipelined: bool = True,
+                            async_mapping: bool = True):
+    """(c) Stereo-inertial SLAM over the first n frames of `vi_sequence(n)`
+    (scene 7, the right view b to the right), through
+    `track_stereo_pipelined` (or `track_stereo` when not `pipelined`), with
+    the mapping worker (or inline when not `async_mapping`): n = 60 at
+    tests/test_stereo_pipelined.py's config (768 features, local map and BA
+    2048, a keyframe every 5 frames) to its bars (IMU initialized, > 45
+    poses, metric ATE < 15 cm; pipelined < 4 cm, ROADMAP C17); n = 150 at
+    phase 7's config to phase 7's bars (IMU initialized, >= 95 % tracked,
+    metric ATE < 8 cm). Loop closing off, as both. The tracker's VI refinement must be captured into its
+    CUDA graph and replayed (beside the worker, when there is one); fails
     also on a worker error or launches that differ from the matcher
     calls."""
     from orb_slam3_comments_ghr_torch.ops import cameras
     from orb_slam3_comments_ghr_torch.system import SLAM
     from orb_slam3_comments_ghr_torch.utils import config, evaluation
 
+    mode = PHASE14_MODES[(pipelined, async_mapping)]
     left, right, rows, times, poses = vi_inputs(n, 7, "right")
     widths = (dict(n_features=768, local_points_cap=2048, local_ba_points=2048,
                    max_frames_between_kf=5) if n == PHASE14_VI_FRAMES else
               dict(n_features=1024, local_points_cap=4096, local_ba_points=2048,
                    max_frames_between_kf=10, min_init_matches=60))
     cfg = config.SlamConfig(sensor=config.IMU_STEREO, enable_loop_closing=False,
-                            async_mapping=True, **widths)
+                            async_mapping=async_mapping, **widths)
     slam = SLAM(cameras.euroc_cam0(), cfg, imu_calib=imu_calib(), device=device)
     seen = _watch_worker(slam)
     graph = slam.tracker._pose_inertial
     capture, replays, captured_busy = graph._capture, [0], []
 
     def watched_capture(*args):
-        captured_busy.append(seen["busy"] > 0 or slam._map_queue.qsize() > 0)
+        queued = slam._map_queue is not None and slam._map_queue.qsize() > 0
+        captured_busy.append(seen["busy"] > 0 or queued)
         return capture(*args)
 
     graph._capture = watched_capture
@@ -2855,6 +2890,7 @@ def phase14_stereo_inertial(wm_mod, device, n: int):
         return run_graph(*args)
 
     slam.tracker._pose_inertial = counted_graph
+    track = slam.track_stereo_pipelined if pipelined else slam.track_stereo
     calls = {"tracking": 0, "init": 0, "fuse": 0}
     originals = _count_matchers(wm_mod, calls, ThreadStack(), {}, {})
     torch.cuda.synchronize()
@@ -2862,9 +2898,10 @@ def phase14_stereo_inertial(wm_mod, device, n: int):
     try:
         ms = []
         for i in range(n):
-            ms.append(_frame_ms(lambda: slam.track_stereo_pipelined(
-                left[i], right[i], times[i], imu_samples=rows[i])))
-        slam.flush_pipeline()
+            ms.append(_frame_ms(lambda: track(left[i], right[i], times[i],
+                                              imu_samples=rows[i])))
+        if pipelined:
+            slam.flush_pipeline()
         slam.wait_idle()
         torch.cuda.synchronize()
         launches = wm_mod.launches
@@ -2874,26 +2911,30 @@ def phase14_stereo_inertial(wm_mod, device, n: int):
     traj = slam.trajectory()
     ate = evaluation.ate_rmse(traj, vi_gt(poses, times), with_scale=False)
     imu_init = slam.map.map_imu_init.get(slam.map.active_map, False)
-    stats = _ms_stats(ms[slam.cfg.pipeline_depth:])
-    print(f"phase14 (c) stereo-inertial pipelined, async, {n} frames: IMU initialized {imu_init}, "
-          f"poses {len(traj)}, keyframes {slam.n_keyframes()} (the worker processed "
+    stats = _ms_stats(ms[slam.cfg.pipeline_depth if pipelined else 0:])
+    print(f"phase14 (c) stereo-inertial {mode}, {n} frames: IMU initialized {imu_init}, "
+          f"poses {len(traj)}, keyframes {slam.n_keyframes()} (the mapper processed "
           f"{seen['worker_keyframes']}, the busy mapper held back {seen['held_back']}), metric ATE "
           f"{ate * 1e3:.3f} mm, worker_errors {slam.worker_errors}; VI refinement graphs "
           f"captured {len(captured_busy)} (with the worker busy: {sum(captured_busy)}), calls "
           f"{replays[0]}; per-call host ms (median / p75 / worst) {stats['median_ms']:.3f} / "
           f"{stats['p75_ms']:.3f} / {stats['max_ms']:.3f}")
-    _check_launches(f"phase14 (c) {n}", launches, calls)
+    _check_launches(f"phase14 (c) {mode} {n}", launches, calls)
     if n == PHASE14_VI_FRAMES:
-        ok = imu_init and len(traj) > 45 and ate < 0.15
+        # < 40 mm: on an H100 the deep pipeline's stale seed after the
+        # initialization (ROADMAP C17) put these 60 frames at 55.5-59.1 mm;
+        # without it they land at 14-17 mm, and at 28 mm once beside the
+        # other phase groups
+        ok = imu_init and len(traj) > 45 and ate < (0.04 if pipelined else 0.15)
     else:
         ok = imu_init and len(traj) >= 0.95 * n and ate < 0.08
     if not ok or slam.worker_errors != 0:
-        raise AssertionError(f"phase14 (c) {n}: IMU init {imu_init}, {len(traj)} poses, metric "
-                             f"ATE {ate:.4f} m, {slam.worker_errors} worker errors")
+        raise AssertionError(f"phase14 (c) {mode} {n}: IMU init {imu_init}, {len(traj)} poses, "
+                             f"metric ATE {ate:.4f} m, {slam.worker_errors} worker errors")
     if not captured_busy or replays[0] == 0 or calls["init"] != 0:
-        raise AssertionError(f"phase14 (c) {n}: the VI refinement's graph was not captured and "
-                             "replayed, or the two-view init ran")
-    return launches, calls, dict(imu_init=bool(imu_init), poses=len(traj), ate_m=ate,
+        raise AssertionError(f"phase14 (c) {mode} {n}: the VI refinement's graph was not "
+                             "captured and replayed, or the two-view init ran")
+    return launches, calls, dict(mode=mode, imu_init=bool(imu_init), poses=len(traj), ate_m=ate,
                                  keyframes=slam.n_keyframes(), frames=stats,
                                  graphs_captured=len(captured_busy),
                                  captured_with_worker_busy=sum(captured_busy),
@@ -2987,6 +3028,167 @@ def phase_group_async(window_match, device, work):
     paths["feature loop async"] = dict(calls, launches=n)
     print(f"phase14 (d) passed in {time.perf_counter() - t1:.1f} s")
     print(f"phase14 passed in {time.perf_counter() - t0:.1f} s")
+    return paths, recorded, out
+
+
+# ------------------------------------------------------------------ phase 15
+# the tools users run beside the engine (orb_slam3_comments_ghr_torch/scripts),
+# on a stand-in EuRoC ground truth: the JAX package's own estimate of MH01's
+# real motion (results/, 3637 poses at 20 Hz) written in EuRoC's layout.
+# (a) run_gt_replay, features, mono, the first PHASE15_MONO_FRAMES frames, to
+# tests/test_gt_replay.py's bars; (b) run_gt_replay, rendered stereo images
+# with the IMU and loop closing on, the first PHASE15_VI_FRAMES frames, to
+# tests/test_torch_gt_replay.py's stereo bars and an initialized IMU; (c)
+# phase 10 (a)'s loop with the 100k-word tree; (d) train_vocabulary on the
+# card, its file round trip, and eval_vocabulary of the two shipped trees
+PHASE15_TUM = os.path.join("results", "mh01_img_stereo_full_r5.tum")
+PHASE15_MONO_FRAMES = 600
+PHASE15_VI_FRAMES = 200
+PHASE15_VOC_KF = 150      # database keyframes of (d) (as many queries)
+PHASE15_TRAIN = ["--synthetic", "60", "--k", "10", "--L", "3"]
+# the window-match call of (a) kept for phase 1: its 300th tracking call
+RECORD_AT_GT = {"tracking": 300}
+
+
+def repo_root() -> str:
+    return os.path.dirname(os.path.abspath(__file__))
+
+
+def phase15_stand_in_gt(work: str) -> None:
+    """Write PHASE15_TUM as WORK/euroc_gt/MH01_GT.txt and point the port's
+    `gt_replay.GT_DIR` there."""
+    from orb_slam3_comments_ghr_torch.utils import gt_replay
+
+    folder = os.path.join(work, "euroc_gt")
+    os.makedirs(folder, exist_ok=True)
+    n = gt_replay.euroc_gt_from_tum(os.path.join(repo_root(), PHASE15_TUM),
+                                    os.path.join(folder, "MH01_GT.txt"))
+    gt_replay.GT_DIR = folder
+    print(f"phase15 stand-in ground truth: {n} poses of {PHASE15_TUM} as MH01_GT.txt")
+
+
+def phase15_gt_replay(wm_mod, argv, tag: str, record_at: dict):
+    """`scripts/run_gt_replay` with `argv` on the card, the window match's
+    launches counted from 0 against its callers' calls (the loop closer's
+    apart) and its arguments recorded as `record_at` says under "gt replay
+    ...". Returns (launches, calls, recorded, the JSON line's dict, the
+    SLAM)."""
+    from orb_slam3_comments_ghr_torch.scripts import run_gt_replay
+
+    calls = {"tracking": 0, "init": 0, "fuse": 0, "loop_count": 0, "loop_fuse": 0}
+    recorded, box = {}, {}
+
+    def on_start(slam):
+        box["restore"] = _count_loop_matchers(wm_mod, slam, calls, recorded, record_at,
+                                              "gt replay ")
+        torch.cuda.synchronize()
+        wm_mod.launches = 0
+
+    try:
+        result, slam = run_gt_replay.replay(run_gt_replay.parse_args(argv), on_start=on_start)
+        torch.cuda.synchronize()
+        launches = wm_mod.launches
+    finally:
+        if "restore" in box:
+            box["restore"]()
+    print(f"{tag} run_gt_replay {' '.join(argv)}: {json.dumps(result)}")
+    _check_launches(tag, launches, calls)
+    return launches, calls, recorded, result, slam
+
+
+def phase15_replay_mono(wm_mod):
+    """(a) Fails unless > 90 % of the frames are tracked in one map with a
+    Sim(3) ATE < 5 cm (tests/test_gt_replay.py)."""
+    n, calls, rec, r, _ = phase15_gt_replay(
+        wm_mod, ["--sensor", "mono", "--render", "features", "--max-frames",
+                 str(PHASE15_MONO_FRAMES)], "phase15 (a)", RECORD_AT_GT)
+    if not (r["tracked"] > 0.9 * r["frames"] and r["maps"] == 1 and r["ate_rmse_m"] < 0.05):
+        raise AssertionError(f"phase15 (a): {r}")
+    return n, calls, rec, r
+
+
+def phase15_replay_stereo_inertial(wm_mod):
+    """(b) Fails unless > 90 % of the frames are tracked in one map with no
+    reset, the IMU initialized and the metric ATE < 5 cm
+    (tests/test_torch_gt_replay.py's stereo image replay)."""
+    n, calls, _, r, slam = phase15_gt_replay(
+        wm_mod, ["--sensor", "imu-stereo", "--render", "images", "--max-frames",
+                 str(PHASE15_VI_FRAMES)], "phase15 (b)", {})
+    r["imu_init"] = bool(slam.map.map_imu_init.get(slam.map.active_map, False))
+    resets = r["map_resets"] + r["lost_resets"] + r["submap_spawns"]
+    print(f"phase15 (b) IMU initialized {r['imu_init']}, worker_errors {slam.worker_errors}")
+    if not (r["tracked"] > 0.9 * r["frames"] and r["maps"] == 1 and resets == 0
+            and r["imu_init"] and r["ate_rmse_noscale_m"] < 0.05):
+        raise AssertionError(f"phase15 (b): {r}")
+    return n, calls, r
+
+
+def _same_vocabulary(a, b) -> bool:
+    return (a.k == b.k and a.L == b.L and a.idf.tobytes() == b.idf.tobytes()
+            and all(x.dtype == y.dtype and x.tobytes() == y.tobytes()
+                    for x, y in zip(a.levels, b.levels)))
+
+
+def phase15_vocabulary(device, work: str) -> dict:
+    """(d) train_vocabulary on PHASE15_TRAIN's synthetic views, its file
+    loaded and saved again bit for bit; then eval_vocabulary on
+    PHASE15_VOC_KF database keyframes of the stand-in motion: the shipped
+    10k and 100k trees must both reach p@1 >= 0.9 (the trained tree is
+    scored beside them)."""
+    from orb_slam3_comments_ghr_torch.retrieval.vocabulary import Vocabulary
+    from orb_slam3_comments_ghr_torch.scripts import eval_vocabulary, train_vocabulary
+
+    path = os.path.join(work, "voc_trained.npz")
+    t0 = time.perf_counter()
+    voc = train_vocabulary.train(train_vocabulary.parse_args(PHASE15_TRAIN + ["--out", path]))
+    train_s = time.perf_counter() - t0
+    loaded = Vocabulary.load(path, device=device)
+    again = os.path.join(work, "voc_trained_again.npz")
+    loaded.save(again)
+    round_trip = _same_vocabulary(voc, loaded) and _same_vocabulary(
+        loaded, Vocabulary.load(again, device=device))
+    print(f"phase15 (d) train_vocabulary {' '.join(PHASE15_TRAIN)}: {voc.n_words} words in "
+          f"{train_s:.1f} s; save / load bit for bit {round_trip}")
+    t0 = time.perf_counter()
+    frames = eval_vocabulary._build_frames(PHASE15_VOC_KF, 1024, 7, device)
+    retrieval = os.path.join(repo_root(), "orb_slam3_comments_ghr_torch", "retrieval")
+    scores = {}
+    for name, p in (("10k", os.path.join(retrieval, "default_voc.npz")),
+                    ("100k", os.path.join(retrieval, "voc_100k.npz")), ("trained", path)):
+        scores[name] = eval_vocabulary._score(p, frames, 2.0, device)
+        print(f"phase15 (d) eval_vocabulary {name}: {json.dumps(scores[name])}")
+    print(f"phase15 (d) eval over {len(frames)} frames in {time.perf_counter() - t0:.1f} s")
+    if not round_trip:
+        raise AssertionError("phase15 (d): the trained vocabulary did not round-trip bit for bit")
+    if not all(scores[k]["precision_at_1"] >= 0.9 for k in ("10k", "100k")):
+        raise AssertionError(f"phase15 (d): p@1 under 0.9: {scores}")
+    return dict(train_s=train_s, n_words=voc.n_words, round_trip=round_trip, scores=scores)
+
+
+def phase_group_gt_tools(window_match, device, work):
+    """Phase 15."""
+    paths, recorded, out = {}, {}, {}
+    t0 = time.perf_counter()
+    phase15_stand_in_gt(work)
+    n, calls, rec, out["gt_replay_mono"] = phase15_replay_mono(window_match)
+    paths["gt replay mono"] = dict(calls, launches=n)
+    recorded.update(rec)
+    print(f"phase15 (a) passed in {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    n, calls, out["gt_replay_stereo_inertial"] = phase15_replay_stereo_inertial(window_match)
+    paths["gt replay stereo-inertial"] = dict(calls, launches=n)
+    print(f"phase15 (b) passed in {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    voc_100k = os.path.join(repo_root(), "orb_slam3_comments_ghr_torch", "retrieval",
+                            "voc_100k.npz")
+    n, calls, out["feature_loop_100k"] = phase10_feature_loop(window_match, device, voc_100k,
+                                                              "phase15 (c)")
+    paths["feature loop 100k"] = dict(calls, launches=n)
+    print(f"phase15 (c) passed in {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    out["vocabulary"] = phase15_vocabulary(device, work)
+    print(f"phase15 (d) passed in {time.perf_counter() - t1:.1f} s")
+    print(f"phase15 passed in {time.perf_counter() - t0:.1f} s")
     return paths, recorded, out
 
 
@@ -3523,7 +3725,7 @@ def main(argv=None) -> int:
 # machine's cores the groups take about the time of the longest, not the sum
 CHILD_GROUPS = {"7-9": phase_group_inertial, "10": phase_group_loop,
                 "11": phase_group_inertial_loop, "12": phase_group_fisheye,
-                "14": phase_group_async}
+                "14": phase_group_async, "15": phase_group_gt_tools}
 GROUP_TIMEOUT_S = 1100
 
 
@@ -3661,6 +3863,12 @@ def run_phases(opts, matching, window_match, work: str) -> int:
               f"{vi_stereo['frames']['imu_ready']['median_ms']:.3f} / "
               f"{vi_stereo['frames']['imu_ready']['p75_ms']:.3f} (phases 5 and 7 ran beside other "
               "phases' processes)")
+        modes = {**inertial_results, **results["14"]["results"]}
+        print(f"phase14 (c) stereo-inertial, {PHASE7_FRAMES} frames, metric ATE (mm) by mode: "
+              f"synchronous inline (phase 7) {vi_stereo['ate_m'] * 1e3:.3f}, synchronous "
+              f"worker {modes['stereo-inertial worker 150']['ate_m'] * 1e3:.3f}, pipelined "
+              f"inline {modes['stereo-inertial pipelined inline 150']['ate_m'] * 1e3:.3f}, "
+              f"pipelined worker {modes['stereo-inertial pipelined 150']['ate_m'] * 1e3:.3f}")
         t0 = time.perf_counter()
         entry.update(phase13_distributed(atlas, device))
         print(f"phase13 (d), (e) passed in {time.perf_counter() - t0:.1f} s")
@@ -3678,7 +3886,8 @@ def run_phases(opts, matching, window_match, work: str) -> int:
                                        *(f"cli stereo {c}" for c in RECORD_AT_CLI_STEREO),
                                        *(f"atlas {c}" for c in RECORD_AT_SESSION2
                                          if f"atlas {c}" in recorded),
-                                       *(f"async {c}" for c in RECORD_AT_ASYNC)])
+                                       *(f"async {c}" for c in RECORD_AT_ASYNC),
+                                       *(f"gt replay {c}" for c in RECORD_AT_GT)])
         max_err = max(max_err, err)
         print("phase1 on the recorded caller inputs passed")
 
@@ -3695,7 +3904,9 @@ def run_phases(opts, matching, window_match, work: str) -> int:
                 "inertial kidnap and merge", "mono fisheye", "stereo fisheye",
                 "stereo-inertial fisheye", "cli mono", "cli stereo", "atlas second session",
                 "async mono", "bench mono pipelined", "stereo-inertial pipelined 60",
-                "stereo-inertial pipelined 150", "feature loop async")),
+                "stereo-inertial pipelined 150", "stereo-inertial pipelined inline 150",
+                "stereo-inertial worker 150", "feature loop async", "gt replay mono",
+                "gt replay stereo-inertial", "feature loop 100k")),
             "max_abs_err": max_err,
             # device time per launch on the recorded mono tracking call (CUDA graph)
             "ms": track["device_ms"], "plain_ms": track["plain_ms"],
@@ -3704,7 +3915,7 @@ def run_phases(opts, matching, window_match, work: str) -> int:
         }], "plain_stages": stages, "inertial": inertial_results,
             "loop_closing": {**results["10"]["results"], **results["11"]["results"]},
             "fisheye": results["12"]["results"], "entry_points": entry,
-            "async": results["14"]["results"]}))
+            "async": results["14"]["results"], "tools": results["15"]["results"]}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))

@@ -7,10 +7,11 @@ descends by min Hamming, :136-163). The tree is dense arrays, one
 (nodes, k, 8) uint32 centroid table per level, and the BoW vector is a dense
 (n_words,) tf-idf vector.
 
-Training, persistence, the host descent and the scoring functions are the
-JAX package's numpy code. `transform_on_device` descends all descriptors of
-a frame at once in PyTorch, on the device of the descriptors it is given (or
-the vocabulary's `device` for numpy input), with the port's SWAR popcount.
+Training, persistence (`save` writes the JAX package's file format), the
+host descent and the scoring functions are the JAX package's numpy code.
+`transform_on_device` descends all descriptors of a frame at once in
+PyTorch, on the device of the descriptors it is given (or the vocabulary's
+`device` for numpy input), with the port's SWAR popcount.
 """
 
 from __future__ import annotations
@@ -125,6 +126,14 @@ class Vocabulary:
         return Vocabulary.train(descs, k, L, seed, device=device)
 
     # ----------------------------------------------------------- persistence
+    def save(self, path: str):
+        """The JAX package's file: `k`, `L`, `idf` and one `level_i` per
+        level, compressed; either package loads the other's bit for bit."""
+        np.savez_compressed(
+            path, k=self.k, L=self.L, idf=self.idf,
+            **{f"level_{i}": lv for i, lv in enumerate(self.levels)},
+        )
+
     @staticmethod
     def load(path: str, device=None) -> "Vocabulary":
         z = np.load(path)

@@ -239,6 +239,14 @@ class SLAM:
         steps = len(self._pipe) + 1
         prev = self._pipe[-1] if self._pipe else None
         ready, lp, _, R0, t0 = self.tracker.prepare_frame(timestamp, steps=steps)
+        if (ready and steps > 1 and (prev is None or prev["res"] is None)
+                and self.tracker.velocity is None and not self.tracker._imu_ready()):
+            # no motion model and no result in flight to chain from: the
+            # host prediction is the last tracked pose, `steps` frames of
+            # motion stale, and a track from it can settle on a wrong pose.
+            # The frame is tracked at its retirement instead, predicted from
+            # the frame before it (ROADMAP C17)
+            ready = False
         res = prepared = None
         if ready:
             if prev is not None and prev["res"] is not None:

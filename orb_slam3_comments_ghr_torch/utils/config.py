@@ -1,12 +1,13 @@
 """Typed configuration tree (replaces the reference's Settings YAML loader,
 src/Settings.cc — same knobs, dataclass form; YAML ingestion in io.config).
 
-Copied unchanged from `orb_slam3_comments_ghr_tpu/utils/config.py`, so the
-port needs no JAX. The port runs all six sensors, with loop closing on or
-off, with a pinhole or a KB8 fisheye camera, and shards the whole-map BA
-over the ranks of a `torch.distributed` world with `dba_devices != 0` (the
-world's ranks stand for the JAX package's devices); `SLAM` raises
-NotImplementedError for async mapping."""
+Copied from `orb_slam3_comments_ghr_tpu/utils/config.py` (its fields
+unchanged), so the port needs no JAX. The port runs all six sensors, with
+loop closing on or off, with a pinhole or a KB8 fisheye camera, shards
+the whole-map BA over the ranks of a `torch.distributed` world with
+`dba_devices != 0` (the world's ranks stand for the JAX package's
+devices), and with `async_mapping` runs the mapper and the loop closer on
+a worker thread."""
 
 from __future__ import annotations
 
@@ -51,10 +52,11 @@ class SlamConfig:
                                          # 10k words). A k=10 L=5 100k-word
                                          # tree (reference scale,
                                          # TemplatedVocabulary.h) ships as
-                                         # retrieval/voc_100k.npz — measured
-                                         # retrieval-equal on 300-KF maps
-                                         # (scripts/eval_vocabulary.py,
-                                         # BASELINE.md r4)
+                                         # orb_slam3_comments_ghr_torch/
+                                         # retrieval/voc_100k.npz; compare
+                                         # the two trees' retrieval with
+                                         # orb_slam3_comments_ghr_torch/
+                                         # scripts/eval_vocabulary.py
     # map capacities
     max_kf: int = 512
     max_mp: int = 40000

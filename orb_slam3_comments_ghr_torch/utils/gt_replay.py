@@ -3,7 +3,8 @@ pipeline (numpy only).
 
 Copied from `orb_slam3_comments_ghr_tpu/utils/gt_replay.py`, so that the
 port needs no JAX: EuRoC ground-truth loading (`load_euroc_gt`, from the
-folder that `EUROC_GT_DIR` names or the caller passes), IMU samples
+folder that `EUROC_GT_DIR` names or the caller passes; `euroc_gt_from_tum`
+writes a stand-in file from a TUM trajectory), IMU samples
 differentiated from the trajectory, a landmark hall, and a textured room box
 rendered exactly per pixel (`make_room_scene`, `render_room`: the image-level
 loop of `tests/test_image_loopclosing.py`). The same draws and arithmetic as
@@ -41,6 +42,23 @@ def load_euroc_gt(seq: str = "MH01", gt_dir: str | None = None):
     t_cw = -np.einsum("nij,nj->ni", R_cw, p)
     return (t.astype(np.float64), R_cw.astype(np.float32), t_cw.astype(np.float32),
             p.astype(np.float64), q.astype(np.float64))
+
+
+EUROC_GT_HEADER = ("timestamp [ns], p_RS_R_x [m], p_RS_R_y [m], p_RS_R_z [m], q_RS_w [], "
+                   "q_RS_x [], q_RS_y [], q_RS_z []")
+
+
+def euroc_gt_from_tum(tum_path: str, out_path: str) -> int:
+    """Write a TUM trajectory (`t x y z qx qy qz qw` rows of T_WC, seconds)
+    as a stand-in `{seq}_GT.txt` in EuRoC's layout (`t_ns, p_xyz, q_wxyz`
+    of T_WC, one header row), the form `load_euroc_gt` reads. Returns the
+    number of poses written."""
+    rows = np.loadtxt(tum_path, comments="#", ndmin=2)
+    out = np.concatenate([np.round(rows[:, :1] * 1e9), rows[:, 1:4], rows[:, 7:8],
+                          rows[:, 4:7]], axis=1)
+    np.savetxt(out_path, out, fmt=["%d"] + ["%.9f"] * 7, delimiter=",",
+               header=EUROC_GT_HEADER, comments="#")
+    return len(rows)
 
 
 def _quat_to_mat(q: np.ndarray) -> np.ndarray:

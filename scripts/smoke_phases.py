@@ -16,7 +16,11 @@ loop), 10b (the kidnap and merge), 11 (inertial loop closing: (a), (b) and
 mono, (b) stereo, (c) stereo-inertial; from a tree that has it), 13 (the
 entry points: phase 4's run for its map and atlas, then (a)-(e); from a
 tree that has it), 14 (asynchronous mapping and the deep pipeline: (a)-(d);
-from a tree that has it; 14a and 14d run its (a) or (d) alone). A phase
+from a tree that has it; 14a and 14d run its (a) or (d) alone), 15 (the
+port's tools on a stand-in ground truth: (a)-(d); from a tree that has
+it), 14c60 (phase 14 (c)'s 60 frames in all four modes: pipelined or
+synchronous, with the worker or inline, each with its per-frame metric
+error after alignment, in mm). A phase
 named again runs again (its result under "NAME#2", ...); with
 `--keep-going` a phase that fails is recorded with its error and the next
 one runs, and the exit code is 1 if any failed. Needs one CUDA card.
@@ -30,7 +34,8 @@ import time
 
 PHASES = {"7": "phase7_stereo_inertial", "8": "phase8_rgbd_inertial",
           "9": "phase9_mono_inertial", "10a": "phase10_feature_loop", "10b": "phase10_merge",
-          "11": None, "12": None, "13": None, "14": None, "14a": "phase14_async_mono",
+          "11": None, "12": None, "13": None, "14": None, "15": None, "14c60": None,
+          "14a": "phase14_async_mono",
           "14d": "phase14_background_gba"}
 
 
@@ -81,6 +86,50 @@ def phase14(chip_smoke, window_match, device):
     return sum(p["launches"] for p in paths.values()), paths, out
 
 
+def phase15(chip_smoke, window_match, device):
+    """Phase 15's runs, as chip_smoke's group process runs them, its files
+    in a temporary folder under the tree's `build/`."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="phase15_", dir=chip_smoke.scratch_dir()) as work:
+        paths, _, out = chip_smoke.phase_group_gt_tools(window_match, device, work)
+    return sum(p["launches"] for p in paths.values()), paths, out
+
+
+def phase14c60(chip_smoke, window_match, device):
+    """Phase 14 (c)'s 60 frames in the four modes, each to its bars; a mode
+    that fails is recorded with its error."""
+    import numpy as np
+
+    from orb_slam3_comments_ghr_torch.utils import evaluation
+
+    ate_rmse, seen = evaluation.ate_rmse, {}
+
+    def kept(est, gt, with_scale=True, max_dt=0.02):
+        seen["est"], seen["gt"] = est, gt
+        return ate_rmse(est, gt, with_scale, max_dt)
+
+    evaluation.ate_rmse = kept
+    launches, calls, out = 0, {}, {}
+    try:
+        for (pipelined, worker), mode in chip_smoke.PHASE14_MODES.items():
+            try:
+                n, calls[mode], out[mode] = chip_smoke.phase14_stereo_inertial(
+                    window_match, device, chip_smoke.PHASE14_VI_FRAMES, pipelined, worker)
+                launches += n
+            except AssertionError as e:
+                out[mode] = {"failed": repr(e)}
+            gt = {round(t, 4): np.linalg.inv(T)[:3, 3] for t, T in seen["gt"]}
+            pe = np.stack([np.linalg.inv(T)[:3, 3] for _, T in seen["est"]])
+            pg = np.stack([gt[round(t, 4)] for t, _ in seen["est"]])
+            _, R, t, _ = evaluation.horn_align(pe, pg, with_scale=False)
+            out[mode]["err_mm"] = np.round(np.linalg.norm(pe @ R.T + t - pg, axis=1) * 1e3,
+                                           1).tolist()
+    finally:
+        evaluation.ate_rmse = ate_rmse
+    return launches, calls, out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", default=os.path.join(os.path.dirname(__file__), ".."))
@@ -106,7 +155,8 @@ def main(argv=None) -> int:
         while key in out:
             key = f"{phase}#{int(key.partition('#')[2] or 1) + 1}"
         t0 = time.perf_counter()
-        run = {"11": phase11, "12": phase12, "13": phase13, "14": phase14}.get(phase)
+        run = {"11": phase11, "12": phase12, "13": phase13, "14": phase14,
+               "15": phase15, "14c60": phase14c60}.get(phase)
         try:
             result = (run(chip_smoke, window_match, device) if run
                       else getattr(chip_smoke, PHASES[phase])(window_match, device))

@@ -17,7 +17,23 @@ walk 1e-6 / 1e-5) and feed each frame the IMU rows in (t_{i-1}, t_i].
 
     python scripts/vi_slam_cpu.py --package jax|torch --sensor imu_stereo|imu_rgbd \\
         [--frames N] [--arc TURNS] [--loop-closing] [--stereo-count once|twice] \\
-        [--threads 4] [--dump FILE.npz]
+        [--pipelined [--pipeline-depth N]] [--async-mapping] [--threads 4] \\
+        [--dump FILE.npz] [--out traj.tum]
+
+- `--setup stereo_pipelined` (`--setup` is another name of `--sensor`;
+  phase 14 (c) at 60 frames): the 60 frames of `vi_sequence(60)` and the
+  configuration of `tests/test_stereo_pipelined.py` (scene 7, 768
+  features, local map and BA 2048, a keyframe at least every 5 frames,
+  loop closing off), left and right views as `imu_stereo`.
+
+`--pipelined` tracks a rectified pair through `SLAM.track_stereo_pipelined`
+(the pose returned is that of the frame `pipeline_depth` calls earlier;
+`flush_pipeline()` finishes the rest), and `--async-mapping` sets
+`SlamConfig(async_mapping=True)`: the mapper runs on a worker thread,
+drained by `wait_idle()` before the trajectory is read. With either, the
+per-frame line's state and the IMU-init frame are read at the call, which
+runs `pipeline_depth` frames ahead of the bookkeeping when pipelined and
+ahead of the worker's mapping when asynchronous.
 
 - `--sensor imu_stereo_loop` (phase 11 (a)): the configuration of
   `imu_stereo` with loop closing on (`loop_requires_viba2=False`,
@@ -61,6 +77,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 SETUPS = {
     "imu_stereo": (7, 150, dict(n_features=1024, local_points_cap=4096, local_ba_points=2048,
                                 max_frames_between_kf=10, min_init_matches=60)),
+    "stereo_pipelined": (7, 60, dict(n_features=768, local_points_cap=2048, local_ba_points=2048,
+                                     max_frames_between_kf=5)),
     "imu_rgbd": (61, 60, dict(n_features=768, local_points_cap=2048, local_ba_points=2048,
                               max_frames_between_kf=5)),
     "imu_stereo_fisheye": (33, 150, dict(n_features=1024, local_points_cap=4096,
@@ -95,15 +113,22 @@ def fisheye_pair(cameras_mod, so3_exp):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--package", choices=("jax", "torch"), required=True)
-    ap.add_argument("--sensor", choices=tuple(SETUPS), required=True)
+    ap.add_argument("--sensor", "--setup", dest="sensor", choices=tuple(SETUPS), required=True)
     ap.add_argument("--frames", type=int, default=None)
     ap.add_argument("--arc", type=float, default=None,
                     help="turns of vi_sequence over the frames (default: the setup's sequence)")
     ap.add_argument("--stereo-count", choices=("once", "twice"), default="once",
                     help="JAX package only: how its keyframe decision counts stereo observations")
+    ap.add_argument("--pipelined", action="store_true",
+                    help="rectified stereo through track_stereo_pipelined")
+    ap.add_argument("--async-mapping", action="store_true",
+                    help="SlamConfig(async_mapping=True): the mapper on a worker thread")
+    ap.add_argument("--pipeline-depth", type=int, default=None,
+                    help="SlamConfig.pipeline_depth (frames in flight) with --pipelined")
     ap.add_argument("--threads", type=int, default=4, help="torch CPU threads")
     ap.add_argument("--dump", default=None, help="write the keyframe states after each "
                     "process_keyframe to this .npz")
+    ap.add_argument("--out", default=None, help="write the trajectory (TUM) to this file")
     args = ap.parse_args(argv)
 
     # the scene, the IMU sequence and the depth map are the port's numpy
@@ -167,8 +192,13 @@ def main(argv=None) -> int:
         scene = synthetic.make_textured_scene(seed)
         render = lambda R, t: synthetic.render_image(scene, cam, R, t)
     stereo = args.sensor != "imu_rgbd"
+    if args.pipelined and (fisheye or not stereo):
+        ap.error("--pipelined takes a rectified stereo setup")
     slam = make(cam, config.SlamConfig(sensor=config.IMU_STEREO if stereo else config.IMU_RGBD,
-                                  **{"enable_loop_closing": False, **widths}))
+                                       async_mapping=args.async_mapping,
+                                       **{"enable_loop_closing": False, **widths},
+                                       **({} if args.pipeline_depth is None else
+                                          {"pipeline_depth": args.pipeline_depth})))
     dumps = []
     if args.dump:
         process_keyframe = slam.mapper.process_keyframe
@@ -181,6 +211,16 @@ def main(argv=None) -> int:
                               vel=m.kf_vel[ids].copy(), bias=m.kf_bias[ids].copy()))
 
         slam.mapper.process_keyframe = dumped
+    retired = [0]  # frames the deep pipeline finished with a pose
+    if args.pipelined:
+        retire = slam._retire_oldest
+
+        def counted_retire():
+            pose = retire()
+            retired[0] += pose is not None
+            return pose
+
+        slam._retire_oldest = counted_retire
     u8 = lambda img: np.clip(np.round(img), 0, 255).astype(np.uint8)
     b = np.array([cam.bf / cam.fx, 0.0, 0.0], np.float32)
     tracked, first, imu_init_frame = 0, None, None
@@ -196,6 +236,9 @@ def main(argv=None) -> int:
                                              (R_rl @ t + t_rl).astype(np.float32)))
             pose = slam.track_stereo_fisheye(img, img_r, cam_r, R_lr, t_lr, times[i],
                                              imu_samples=rows)
+        elif args.pipelined:
+            pose = slam.track_stereo_pipelined(img, u8(render(R, t - b)), times[i],
+                                               imu_samples=rows)
         elif stereo:
             pose = slam.track_stereo(img, u8(render(R, t - b)), times[i], imu_samples=rows)
         else:
@@ -209,12 +252,20 @@ def main(argv=None) -> int:
             imu_init_frame = i
         print(i, slam.state, slam.n_keyframes(), slam.n_map_points(), init,
               f"{time.time() - t0:.1f}s", flush=True)
+    if args.pipelined:
+        slam.flush_pipeline()
+        tracked = retired[0]
+    slam.wait_idle()
+    if args.out:
+        slam.save_trajectory_tum(args.out)
     if args.dump:
         np.savez(args.dump, **{f"{j}_{k}": v for j, d in enumerate(dumps) for k, v in d.items()})
     gt = [(times[i], np.vstack([np.hstack([poses[i][0], poses[i][1][:, None]]), [0, 0, 0, 1]])
            .astype(np.float32)) for i in range(n)]
     print(json.dumps(dict(
         package=args.package, sensor=args.sensor, stereo_count=args.stereo_count, frames=n,
+        pipelined=args.pipelined, async_mapping=args.async_mapping,
+        worker_errors=slam.worker_errors, poses=len(slam.trajectory()),
         arc=arc, loops=getattr(slam.loopcloser, "n_loops", 0),
         merges=getattr(slam.loopcloser, "n_merges", 0), maps=slam.map.n_maps,
         right_rows=int((slam.map.mp_obs_r_level >= 0).sum()),
