@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..ops import lie
+from ..utils.profiling import GLOBAL_TIMER
 
 GRAVITY = 9.81
 
@@ -159,23 +160,27 @@ def _integrate(carry, acc, gyr, dts, bias, calib: ImuCalib) -> Preintegrated:
 def preintegrate(acc: torch.Tensor, gyr: torch.Tensor, dts: torch.Tensor,
                  bias: torch.Tensor, calib: ImuCalib) -> Preintegrated:
     """acc / gyr: (T,3) samples; dts: (T,) per-sample dt (0 = padding);
-    bias: (6,) [bg, ba]. Runs where the samples lie."""
-    z3 = torch.zeros(3, dtype=acc.dtype, device=acc.device)
-    zm = torch.zeros((3, 3), dtype=acc.dtype, device=acc.device)
-    init = (torch.eye(3, dtype=acc.dtype, device=acc.device), z3, z3,
-            torch.zeros((15, 15), dtype=acc.dtype, device=acc.device),
-            zm, zm, zm, zm, zm, torch.zeros((), dtype=acc.dtype, device=acc.device))
-    return _integrate(init, acc, gyr, dts, bias, calib)
+    bias: (6,) [bg, ba]. Runs where the samples lie; an `imu_integration`
+    span."""
+    with GLOBAL_TIMER.stage("imu_integration"):
+        z3 = torch.zeros(3, dtype=acc.dtype, device=acc.device)
+        zm = torch.zeros((3, 3), dtype=acc.dtype, device=acc.device)
+        init = (torch.eye(3, dtype=acc.dtype, device=acc.device), z3, z3,
+                torch.zeros((15, 15), dtype=acc.dtype, device=acc.device),
+                zm, zm, zm, zm, zm, torch.zeros((), dtype=acc.dtype, device=acc.device))
+        return _integrate(init, acc, gyr, dts, bias, calib)
 
 
 def preintegrate_continue(pre: Preintegrated, acc: torch.Tensor, gyr: torch.Tensor,
                           dts: torch.Tensor, calib: ImuCalib) -> Preintegrated:
     """Integrate a new sample chunk onto an existing preintegration (the
     per-frame accumulation of mpImuPreintegratedFromLastKF, Tracking.cc:1883),
-    with pre.bias. The raw samples of the result hold only the new chunk."""
-    init = (pre.dR, pre.dV, pre.dP, pre.C, pre.J_rg, pre.J_vg, pre.J_va, pre.J_pg,
-            pre.J_pa, pre.dT)
-    return _integrate(init, acc, gyr, dts, pre.bias, calib)
+    with pre.bias. The raw samples of the result hold only the new chunk. An
+    `imu_integration` span."""
+    with GLOBAL_TIMER.stage("imu_integration"):
+        init = (pre.dR, pre.dV, pre.dP, pre.C, pre.J_rg, pre.J_vg, pre.J_va, pre.J_pg,
+                pre.J_pa, pre.dT)
+        return _integrate(init, acc, gyr, dts, pre.bias, calib)
 
 
 def empty_preintegrated(capacity: int, device="cuda") -> Preintegrated:

@@ -38,6 +38,7 @@ from ..optim import posegraph
 from ..optim import sim3 as sim3_mod
 from ..utils.config import SlamConfig
 from ..utils.device import resolve_device
+from ..utils.profiling import GLOBAL_TIMER
 from . import programs
 
 class LoopCloser:
@@ -90,10 +91,12 @@ class LoopCloser:
         # the strongest pending hypothesis is re-verified against the new
         # keyframe first (DetectAndReffineSim3FromLastKF, LoopClosing.cc:716)
         cand_info = None
-        if self._pendings:
-            cand_info = self._refine_pending(kf, max(self._pendings, key=lambda q: q["hits"]))
-        if cand_info is None:
-            cand_info = self._detect(kf)
+        with GLOBAL_TIMER.stage("place_recognition"):
+            if self._pendings:
+                cand_info = self._refine_pending(kf, max(self._pendings,
+                                                         key=lambda q: q["hits"]))
+            if cand_info is None:
+                cand_info = self._detect(kf)
         if cand_info is None:
             for q in self._pendings:
                 q["misses"] += 1
@@ -110,7 +113,8 @@ class LoopCloser:
         else:
             # spatial verification from the current keyframe's covisible
             # keyframes (LoopClosing.cc:1168-1250): each success confirms
-            hits = 1 + self._spatial_verification(kf, cand, s12, R12, t12)
+            with GLOBAL_TIMER.stage("place_recognition"):
+                hits = 1 + self._spatial_verification(kf, cand, s12, R12, t12)
             matched = {"region": region, "hits": hits, "misses": 0,
                        "sim3": (s12, R12, t12), "kf": kf, "cand": cand}
             self._pendings.append(matched)
@@ -143,10 +147,12 @@ class LoopCloser:
         # first (mbStopGBA, LoopClosing.cc:1383-1407)
         self.abort_gba()
         if same_map:
-            self._correct_loop(kf, cand, s12, R12, t12)
+            with GLOBAL_TIMER.stage("loop_correct"):
+                self._correct_loop(kf, cand, s12, R12, t12)
             self.n_loops += 1
         else:
-            self._merge_maps(kf, cand, s12, R12, t12)
+            with GLOBAL_TIMER.stage("merge"):
+                self._merge_maps(kf, cand, s12, R12, t12)
             self.n_merges += 1
         return True
 
@@ -179,16 +185,19 @@ class LoopCloser:
         It takes its problem from the map and writes back under the map's
         lock, in bites that `abort_gba` can stop; the whole-map visual BA
         also carries its correction to keyframes and points made while it
-        ran."""
+        ran. It is a `global_ba` span, on its thread with the frame id of
+        the keyframe that launched it."""
         if not self.cfg.async_mapping:
-            fn(**kw)
+            with GLOBAL_TIMER.stage("global_ba"):
+                fn(**kw)
             return
         self.join_gba()
+        frame = GLOBAL_TIMER.frame()
 
         def run():
             try:
                 with (torch.cuda.stream(self.gba_stream) if self.gba_stream is not None
-                      else contextlib.nullcontext()):
+                      else contextlib.nullcontext()), GLOBAL_TIMER.stage("global_ba", frame=frame):
                     fn(**kw)
             except Exception:
                 traceback.print_exc()

@@ -160,7 +160,8 @@ class LocalMapper:
             with GLOBAL_TIMER.stage("local_ba"):
                 self.local_ba(kf)
         if self.imu is not None:
-            self.maybe_initialize_imu(kf)
+            with GLOBAL_TIMER.stage("imu_init"):
+                self.maybe_initialize_imu(kf)
         with GLOBAL_TIMER.stage("kf_cull"):
             self.cull_keyframes(kf)
 

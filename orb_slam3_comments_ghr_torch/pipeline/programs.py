@@ -34,6 +34,7 @@ from ..frontend.batched import extract_batched
 from ..ops import cameras, lie, matching, triangulate
 from ..ops.window_match import window_match
 from ..optim import pose_opt
+from ..utils.profiling import GLOBAL_TIMER
 
 
 class LocalPoints(NamedTuple):
@@ -92,39 +93,44 @@ def track_against_points(
     scale: float = 1.2,
     iters_per_round: int = 10,
 ) -> TrackResult:
-    visible, uv_pred, level_pred, radius = _frustum_gate(cam, R0, t0, pts, n_levels, scale)
-    # the window match encodes visibility as radius -1, as the TPU kernel's
-    # caller does; that equals the XLA path's `window_mask & visible`
-    idx, best, second = window_match(
-        pts.desc,
-        uv_pred,
-        torch.where(visible, radius * th, -1.0),
-        (level_pred - 1).to(torch.float32),
-        (level_pred + 1).to(torch.float32),
-        feats.desc,
-        feats.xy,
-        feats.level.to(torch.float32),
-        feats.valid.to(torch.float32),
-    )
-    ok = matching.ratio_test(best, second, matching.TH_HIGH, 0.8)
-    ok = matching.resolve_duplicates(idx, best, ok, feats.xy.shape[0])
-    # rotation-histogram consistency between each point's reference-KF
-    # keypoint angle and its matched frame keypoint
-    ok = matching.rotation_consistency(pts.angle, feats.angle, idx, ok)
+    """TrackLocalMap: the `track_map` span, with the pose LM its `pose_lm`
+    child (the span's self time is the window match and its checks)."""
+    with GLOBAL_TIMER.stage("track_map"):
+        visible, uv_pred, level_pred, radius = _frustum_gate(cam, R0, t0, pts, n_levels, scale)
+        # the window match encodes visibility as radius -1, as the TPU kernel's
+        # caller does; that equals the XLA path's `window_mask & visible`
+        idx, best, second = window_match(
+            pts.desc,
+            uv_pred,
+            torch.where(visible, radius * th, -1.0),
+            (level_pred - 1).to(torch.float32),
+            (level_pred + 1).to(torch.float32),
+            feats.desc,
+            feats.xy,
+            feats.level.to(torch.float32),
+            feats.valid.to(torch.float32),
+        )
+        ok = matching.ratio_test(best, second, matching.TH_HIGH, 0.8)
+        ok = matching.resolve_duplicates(idx, best, ok, feats.xy.shape[0])
+        # rotation-histogram consistency between each point's reference-KF
+        # keypoint angle and its matched frame keypoint
+        ok = matching.rotation_consistency(pts.angle, feats.angle, idx, ok)
 
-    sel = idx.long()
-    obs = pose_opt.PoseObs(
-        p_world=pts.pos,
-        uv=feats.xy[sel],
-        u_right=feats.u_right[sel],
-        level=feats.level[sel],
-        valid=ok,
-    )
-    R, t, inlier, n = pose_opt.optimize_pose(cam, R0, t0, obs, iters_per_round=iters_per_round)
-    return TrackResult(
-        R=R, t=t, match_feat=torch.where(ok, idx, -1), inlier=inlier & ok,
-        visible=visible, n_inliers=n,
-    )
+        sel = idx.long()
+        obs = pose_opt.PoseObs(
+            p_world=pts.pos,
+            uv=feats.xy[sel],
+            u_right=feats.u_right[sel],
+            level=feats.level[sel],
+            valid=ok,
+        )
+        with GLOBAL_TIMER.stage("pose_lm"):
+            R, t, inlier, n = pose_opt.optimize_pose(cam, R0, t0, obs,
+                                                     iters_per_round=iters_per_round)
+        return TrackResult(
+            R=R, t=t, match_feat=torch.where(ok, idx, -1), inlier=inlier & ok,
+            visible=visible, n_inliers=n,
+        )
 
 
 track_only = track_against_points
@@ -143,11 +149,12 @@ def extract_only(
     """Extraction half of the per-frame program; with `undistort` the
     keypoints are mapped to the virtual pinhole of `extract_cam` (padded
     slots too: they stay finite and masked)."""
-    feats = extract_batched(
-        img, n_features=n_features, n_levels=n_levels, scale=scale,
-        ini_th=ini_th, min_th=min_th,
-    )
-    return _undistorted(extract_cam, feats) if undistort else feats
+    with GLOBAL_TIMER.stage("extract"):
+        feats = extract_batched(
+            img, n_features=n_features, n_levels=n_levels, scale=scale,
+            ini_th=ini_th, min_th=min_th,
+        )
+        return _undistorted(extract_cam, feats) if undistort else feats
 
 
 def _undistorted(cam: cameras.Camera, feats):
@@ -195,12 +202,15 @@ def extract_stereo_only(
     then the row matcher, which fills the left features' u_right and depth;
     with `undistort` the left keypoints are then undistorted."""
     kw = dict(n_features=n_features, n_levels=n_levels, scale=scale, ini_th=ini_th, min_th=min_th)
-    fl = extract_batched(img_l, **kw)
-    fr = extract_batched(img_r, **kw)
-    u_right, depth = stereo.stereo_match(extract_cam, fl, fr, img_l.to(torch.float32),
-                                         img_r.to(torch.float32), scale=scale)
-    fl = fl._replace(u_right=u_right, depth=depth)
-    return _undistorted(extract_cam, fl) if undistort else fl
+    with GLOBAL_TIMER.stage("extract"):
+        fl = extract_batched(img_l, **kw)
+    with GLOBAL_TIMER.stage("extract"):
+        fr = extract_batched(img_r, **kw)
+    with GLOBAL_TIMER.stage("stereo_match"):
+        u_right, depth = stereo.stereo_match(extract_cam, fl, fr, img_l.to(torch.float32),
+                                             img_r.to(torch.float32), scale=scale)
+        fl = fl._replace(u_right=u_right, depth=depth)
+        return _undistorted(extract_cam, fl) if undistort else fl
 
 
 def chain_seed(prev_R, prev_t, prev_n, vR, vt, R0, t0, min_matches: int):

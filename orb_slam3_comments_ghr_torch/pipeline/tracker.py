@@ -34,6 +34,7 @@ from ..ops import cameras, matching
 from ..optim import ba, imu as imu_mod, inertial, pnp, pose_opt, twoview
 from ..utils.config import IMU_MONOCULAR, SlamConfig
 from ..utils.device import resolve_device
+from ..utils.profiling import GLOBAL_TIMER
 from . import programs
 from .imu_frontend import ImuFrontend
 
@@ -83,10 +84,11 @@ def _fetch_track(res: programs.TrackResult, close=None):
     L = res.match_feat.shape[0]
     f32 = torch.float32
     extra = [] if close is None else [close.to(f32)]
-    flat = torch.cat([
-        res.R.reshape(9), res.t, res.n_inliers.reshape(1).to(f32),
-        res.match_feat.to(f32), res.inlier.to(f32), res.visible.to(f32), *extra,
-    ]).cpu().numpy()
+    with GLOBAL_TIMER.stage("fetch"):
+        flat = torch.cat([
+            res.R.reshape(9), res.t, res.n_inliers.reshape(1).to(f32),
+            res.match_feat.to(f32), res.inlier.to(f32), res.visible.to(f32), *extra,
+        ]).cpu().numpy()
     end = 13 + 3 * L
     return programs.TrackResult(
         R=flat[:9].reshape(3, 3), t=flat[9:12], n_inliers=int(flat[12]),
@@ -204,16 +206,17 @@ class Tracker:
         `steps` is the horizon of the constant-velocity prediction: the deep
         pipeline prepares frame N while the bookkeeping has reached frame
         N - steps."""
-        self._run_frame_prologue(timestamp)
-        self._prepared_ts = timestamp
-        if self.state != OK or self.last_kf < 0:
-            return False, None, None, None, None
-        R0, t0 = self._predict_pose(steps=steps)
-        self._last_prediction = (R0.copy(), t0.copy())
-        lp, ids = self._local_points_view()
-        self._prepared = (lp, ids, R0, t0, self._view_version)
-        self._prepared_th = self._search_th()
-        return True, lp, ids, self._tensor(R0), self._tensor(t0)
+        with GLOBAL_TIMER.stage("pose_prediction"):
+            self._run_frame_prologue(timestamp)
+            self._prepared_ts = timestamp
+            if self.state != OK or self.last_kf < 0:
+                return False, None, None, None, None
+            R0, t0 = self._predict_pose(steps=steps)
+            self._last_prediction = (R0.copy(), t0.copy())
+            lp, ids = self._local_points_view()
+            self._prepared = (lp, ids, R0, t0, self._view_version)
+            self._prepared_th = self._search_th()
+            return True, lp, ids, self._tensor(R0), self._tensor(t0)
 
     def _search_th(self) -> float:
         """Projection search-window multiplier: with no motion model yet
@@ -609,10 +612,11 @@ class Tracker:
                                        else self._prepared)
             self._precomputed = None
         else:
-            R0, t0 = self._predict_pose()
-            self._last_prediction = (R0.copy(), t0.copy())
-            lp, ids = self._local_points_view()
-            view_v = self._view_version
+            with GLOBAL_TIMER.stage("pose_prediction"):
+                R0, t0 = self._predict_pose()
+                self._last_prediction = (R0.copy(), t0.copy())
+                lp, ids = self._local_points_view()
+                view_v = self._view_version
             res = programs.track_against_points(
                 self.cam, feats, lp, self._tensor(R0), self._tensor(t0),
                 th=self._search_th(), n_levels=cfg.n_levels, scale=cfg.scale_factor,
@@ -667,17 +671,18 @@ class Tracker:
         # while recently lost (mInsertKFsLost), when the map must grow back
         insert_ok = ok_state or (cfg.is_inertial and self.state == RECENTLY_LOST
                                  and n_inl >= cfg.min_track_matches)
-        want_kf = (not self.localization_only and insert_ok
-                   and self._need_new_kf(n_inl, timestamp, n_ct, n_cu))
-        if want_kf and self.queue_probe is not None and view_v != m.version:
-            again = self._track_again(feats)
-            if again is not None:
-                res, ids, view_v = again
-                if not cfg.is_mono:
-                    n_ct, n_cu = self._close_point_counts(close, res, ids)
-                want_kf = self._need_new_kf(res.n_inliers, timestamp, n_ct, n_cu)
-        if want_kf:
-            self._create_new_kf(feats, timestamp, res, ids, view_v)
+        with GLOBAL_TIMER.stage("new_kf"):
+            want_kf = (not self.localization_only and insert_ok
+                       and self._need_new_kf(n_inl, timestamp, n_ct, n_cu))
+            if want_kf and self.queue_probe is not None and view_v != m.version:
+                again = self._track_again(feats)
+                if again is not None:
+                    res, ids, view_v = again
+                    if not cfg.is_mono:
+                        n_ct, n_cu = self._close_point_counts(close, res, ids)
+                    want_kf = self._need_new_kf(res.n_inliers, timestamp, n_ct, n_cu)
+            if want_kf:
+                self._create_new_kf(feats, timestamp, res, ids, view_v)
         return ok_state
 
     def _vi_refine(self, feats: Features, res, lp: programs.LocalPoints, timestamp: float):
@@ -696,47 +701,48 @@ class Tracker:
         frame-to-frame preintegration. Here the inertial factor runs from the
         last keyframe, so that prior would pull the current frame toward the
         previous frame's pose with the information of all its matches."""
-        m = self.map
-        kf = self.last_kf
-        pre = self.imu.preintegrate_since_kf(self.last_kf_time, timestamp)
-        if float(pre.dT) <= 1e-6:
-            return
-        Rbc = np.asarray(self.imu.calib.Rbc, np.float32)
-        tbc = np.asarray(self.imu.calib.tbc, np.float32)
-        Rcb = Rbc.T
-        tcb = -Rcb @ tbc
-        # the last keyframe's body state, and the current one from the visual
-        # solution; the inlier matches as padded rows of the local map (its
-        # positions are the view's, the map's positions of `ids`): one upload
-        Rwc_k = m.kf_R[kf].T
-        cw_k = -Rwc_k @ m.kf_t[kf]
-        Rwc = self.last_R.T
-        cw = -Rwc @ self.last_t
-        Rwb = Rwc @ Rbc.T
-        sel = res.inlier & (res.match_feat >= 0)
-        (pR, pp, pv, pb, sR, sp, sv, sb, Rcb_t, tcb_t, idx, ok) = self._upload_packed(
-            Rwc_k @ Rbc.T, cw_k - (Rwc_k @ Rbc.T) @ tbc, m.kf_vel[kf], m.kf_bias[kf],
-            Rwb, cw - Rwb @ tbc, self.body_vel, self.imu.bias, Rcb, tcb,
-            np.where(sel, res.match_feat, 0), sel)
-        prev = inertial.VIState(Rwb=pR, pwb=pp, vel=pv, bias=pb)
-        state0 = inertial.VIState(Rwb=sR, pwb=sp, vel=sv, bias=sb)
-        idx, ok = idx.long(), ok > 0.5
-        obs = pose_opt.PoseObs(
-            p_world=lp.pos, uv=torch.where(ok[:, None], feats.xy[idx], 0.0),
-            u_right=torch.full((sel.shape[0],), -1.0, device=self.device),
-            level=torch.where(ok, feats.level[idx], 0), valid=ok,
-        )
-        st, _, n2, _ = self._pose_inertial(self.cam, state0, prev, pre, obs, (Rcb_t, tcb_t))
-        flat = torch.cat([n2.reshape(1).to(torch.float32), st.Rwb.reshape(9), st.pwb, st.vel,
-                          st.bias]).cpu().numpy()
-        if int(flat[0]) >= self.cfg.min_track_matches:
-            Rwb_n, pwb_n = flat[1:10].reshape(3, 3), flat[10:13]
-            Rwc_n = Rwb_n @ Rbc
-            cw_n = pwb_n + Rwb_n @ tbc
-            self.last_R = Rwc_n.T
-            self.last_t = -Rwc_n.T @ cw_n
-            self.body_vel = flat[13:16].copy()
-            self.imu.bias = flat[16:22].copy()
+        with GLOBAL_TIMER.stage("vi_refine"):
+            m = self.map
+            kf = self.last_kf
+            pre = self.imu.preintegrate_since_kf(self.last_kf_time, timestamp)
+            if float(pre.dT) <= 1e-6:
+                return
+            Rbc = np.asarray(self.imu.calib.Rbc, np.float32)
+            tbc = np.asarray(self.imu.calib.tbc, np.float32)
+            Rcb = Rbc.T
+            tcb = -Rcb @ tbc
+            # the last keyframe's body state, and the current one from the visual
+            # solution; the inlier matches as padded rows of the local map (its
+            # positions are the view's, the map's positions of `ids`): one upload
+            Rwc_k = m.kf_R[kf].T
+            cw_k = -Rwc_k @ m.kf_t[kf]
+            Rwc = self.last_R.T
+            cw = -Rwc @ self.last_t
+            Rwb = Rwc @ Rbc.T
+            sel = res.inlier & (res.match_feat >= 0)
+            (pR, pp, pv, pb, sR, sp, sv, sb, Rcb_t, tcb_t, idx, ok) = self._upload_packed(
+                Rwc_k @ Rbc.T, cw_k - (Rwc_k @ Rbc.T) @ tbc, m.kf_vel[kf], m.kf_bias[kf],
+                Rwb, cw - Rwb @ tbc, self.body_vel, self.imu.bias, Rcb, tcb,
+                np.where(sel, res.match_feat, 0), sel)
+            prev = inertial.VIState(Rwb=pR, pwb=pp, vel=pv, bias=pb)
+            state0 = inertial.VIState(Rwb=sR, pwb=sp, vel=sv, bias=sb)
+            idx, ok = idx.long(), ok > 0.5
+            obs = pose_opt.PoseObs(
+                p_world=lp.pos, uv=torch.where(ok[:, None], feats.xy[idx], 0.0),
+                u_right=torch.full((sel.shape[0],), -1.0, device=self.device),
+                level=torch.where(ok, feats.level[idx], 0), valid=ok,
+            )
+            st, _, n2, _ = self._pose_inertial(self.cam, state0, prev, pre, obs, (Rcb_t, tcb_t))
+            flat = torch.cat([n2.reshape(1).to(torch.float32), st.Rwb.reshape(9), st.pwb, st.vel,
+                              st.bias]).cpu().numpy()
+            if int(flat[0]) >= self.cfg.min_track_matches:
+                Rwb_n, pwb_n = flat[1:10].reshape(3, 3), flat[10:13]
+                Rwc_n = Rwb_n @ Rbc
+                cw_n = pwb_n + Rwb_n @ tbc
+                self.last_R = Rwc_n.T
+                self.last_t = -Rwc_n.T @ cw_n
+                self.body_vel = flat[13:16].copy()
+                self.imu.bias = flat[16:22].copy()
 
     def _bow_match(self, feats: Features, node: np.ndarray, kf: int, ratio: float):
         """SearchByBoW (ORBmatcher.cc:262): the frame's features (BoW nodes

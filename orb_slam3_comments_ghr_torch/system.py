@@ -71,21 +71,24 @@ def _tracking_entry(method):
     the tracker through what the worker did to the map (`_follow_worker`),
     and on the card runs on the system's tracking stream: that stream first
     waits for the caller's (which made the inputs), and the caller's then
-    waits for it (which may read what it left, e.g. `tracker.last_feats`)."""
+    waits for it (which may read what it left, e.g. `tracker.last_feats`).
+    With the stage timer on, the call is the root `frame` span, its id the
+    one the tracker gives the frame (`Tracker.frame_id` after `track`)."""
     @functools.wraps(method)
     def run(self, *args, **kwargs):
-        if self._map_queue is not None:
-            self._follow_worker()
-        stream = self._track_stream
-        if stream is None or torch.cuda.current_stream(self.device) == stream:
-            return method(self, *args, **kwargs)
-        caller = torch.cuda.current_stream(self.device)
-        stream.wait_stream(caller)
-        try:
-            with torch.cuda.stream(stream):
+        with GLOBAL_TIMER.stage("frame", frame=self.tracker.frame_id + 1):
+            if self._map_queue is not None:
+                self._follow_worker()
+            stream = self._track_stream
+            if stream is None or torch.cuda.current_stream(self.device) == stream:
                 return method(self, *args, **kwargs)
-        finally:
-            caller.wait_stream(stream)
+            caller = torch.cuda.current_stream(self.device)
+            stream.wait_stream(caller)
+            try:
+                with torch.cuda.stream(stream):
+                    return method(self, *args, **kwargs)
+            finally:
+                caller.wait_stream(stream)
 
     return run
 
@@ -160,7 +163,8 @@ class SLAM:
         System::TrackMonocular / GrabImuData)."""
         if self.imu is None:
             raise RuntimeError("feed_imu requires an IMU_* sensor config")
-        self.imu.feed(samples)
+        with GLOBAL_TIMER.stage("imu_integration"):
+            self.imu.feed(samples)
 
     def _dummy_local_points(self) -> programs.LocalPoints:
         """Empty local-point view, so init / relocalization frames run the
@@ -386,7 +390,8 @@ class SLAM:
             n_levels=self.cfg.n_levels, scale=self.cfg.scale_factor,
             ini_th=self.cfg.ini_th_fast, min_th=self.cfg.min_th_fast,
         )
-        u_right, depth = stereo.depth_to_stereo(self.cam, feats, self._upload(depth_map))
+        with GLOBAL_TIMER.stage("stereo_match"):
+            u_right, depth = stereo.depth_to_stereo(self.cam, feats, self._upload(depth_map))
         feats = feats._replace(u_right=u_right, depth=depth)
         if self._fisheye:
             feats = feats._replace(xy=cameras.undistort_points(self.cam, feats.xy))
@@ -427,27 +432,28 @@ class SLAM:
             self.mapper.bad_imu = False
             self.mapper._imu_init_failures = 0
             self.reset_active_map()
-        with GLOBAL_TIMER.stage("track_map"):
-            pose = self.tracker.track(feats, timestamp, precomputed=precomputed)
+        pose = self.tracker.track(feats, timestamp, precomputed=precomputed)
         kf = self.tracker.pending_kf
         if kf is not None and self.n_keyframes() >= 2:
             if self._map_queue is not None:
                 # unbounded: tracking never blocks on mapping (the queue
-                # probe in NeedNewKeyFrame is the backpressure)
+                # probe in NeedNewKeyFrame is the backpressure); the frame
+                # id goes along for the keyframe's spans
                 made = None
                 if self._track_stream is not None:
                     made = torch.cuda.Event()
                     made.record(self._track_stream)
-                self._map_queue.put((kf, made))
+                self._map_queue.put((kf, made, self.tracker.frame_id))
                 return pose
-            self.mapper.process_keyframe(kf)
-            if self.mapper.take_world_transform() is not None:
-                # the IMU init rotated and rescaled the world
-                self._reseat_tracker(kf)
-                self._world_epoch += 1
-            if self.cfg.enable_loop_closing and self.loopcloser.process_keyframe(kf):
-                self._reseat_tracker(kf)  # a loop or merge correction moved it
-                self._world_epoch += 1
+            with GLOBAL_TIMER.stage("keyframe"):
+                self.mapper.process_keyframe(kf)
+                if self.mapper.take_world_transform() is not None:
+                    # the IMU init rotated and rescaled the world
+                    self._reseat_tracker(kf)
+                    self._world_epoch += 1
+                if self.cfg.enable_loop_closing and self.loopcloser.process_keyframe(kf):
+                    self._reseat_tracker(kf)  # a loop or merge correction moved it
+                    self._world_epoch += 1
         return pose
 
     def _reseat_tracker(self, kf: int):
@@ -555,15 +561,16 @@ class SLAM:
         made for it is then marked as used on that stream, so that its
         memory outlives the mapper's reads. A keyframe that a reset dropped
         while it waited is skipped (the reference clears the queue on a
-        reset). An exception is counted in `worker_errors` and printed, and
-        the worker goes on."""
+        reset). A keyframe's work is a `keyframe` span with the id of the
+        frame that made it. An exception is counted in `worker_errors` and
+        printed, and the worker goes on."""
         stream = self._map_stream
         while True:
             item = q.get()
             try:
                 if item is None:
                     return
-                kf, made = item
+                kf, made, frame = item
                 with (torch.cuda.stream(stream) if stream is not None
                       else contextlib.nullcontext()):
                     if made is not None:
@@ -573,13 +580,14 @@ class SLAM:
                             if torch.is_tensor(x):
                                 x.record_stream(stream)
                     if mapper.map.kf_valid[kf]:
-                        mapper.busy = True
-                        try:
-                            mapper.process_keyframe(kf)
-                        finally:
-                            mapper.busy = False
-                        if self.cfg.enable_loop_closing and loopcloser.process_keyframe(kf):
-                            self._corrected = True
+                        with GLOBAL_TIMER.stage("keyframe", frame=frame):
+                            mapper.busy = True
+                            try:
+                                mapper.process_keyframe(kf)
+                            finally:
+                                mapper.busy = False
+                            if self.cfg.enable_loop_closing and loopcloser.process_keyframe(kf):
+                                self._corrected = True
             except Exception:
                 self._count_error()
                 traceback.print_exc()
@@ -663,7 +671,8 @@ class SLAM:
             self.save_atlas(atlas_path)
 
     def print_time_stats(self):
-        """Tracking::PrintTimeStats: the stages of `GLOBAL_TIMER`."""
+        """Tracking::PrintTimeStats: the stages of `GLOBAL_TIMER` (which
+        records only while `GLOBAL_TIMER.enabled` is set)."""
         GLOBAL_TIMER.print_time_stats()
 
     # ----------------------------------------------------------- persistence

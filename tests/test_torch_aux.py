@@ -56,14 +56,17 @@ def both_settings(path: str, sensor=None):
 @pytest.fixture(scope="module")
 def feature_slam():
     """tests/test_aux.py TestViz's SLAM: 12 frames of rendered features
-    through the port, with the stage timer cleared first."""
+    through the port, with the stage timer switched on and cleared first,
+    and switched back after; its samples and spans come with the run."""
     from orb_slam3_comments_ghr_torch.ops import cameras
     from orb_slam3_comments_ghr_torch.system import SLAM
     from orb_slam3_comments_ghr_torch.utils import synthetic
     from orb_slam3_comments_ghr_torch.utils.config import SlamConfig
     from orb_slam3_comments_ghr_torch.utils.profiling import GLOBAL_TIMER
 
-    GLOBAL_TIMER.samples.clear()
+    was = GLOBAL_TIMER.enabled
+    GLOBAL_TIMER.enabled = True
+    GLOBAL_TIMER.reset()
     cam = cameras.euroc_cam0()
     world = synthetic.make_world(9, n_points=2000)
     poses = synthetic.circular_trajectory(12)
@@ -71,11 +74,16 @@ def feature_slam():
                      local_ba_points=1024, min_init_matches=50)
     slam = SLAM(cam, cfg, device="cpu")
     feats = None
-    for i, (R, t) in enumerate(poses):
-        feats, _ = synthetic.render_features(world, cam, R, t, n_feat=256, seed=60 + i,
-                                             device="cpu")
-        slam.track_features(feats, i * 0.05)
-    return cam, slam, feats, {k: list(v) for k, v in GLOBAL_TIMER.samples.items()}
+    try:
+        for i, (R, t) in enumerate(poses):
+            feats, _ = synthetic.render_features(world, cam, R, t, n_feat=256, seed=60 + i,
+                                                 device="cpu")
+            slam.track_features(feats, i * 0.05)
+        samples = {k: list(v) for k, v in GLOBAL_TIMER.samples.items()}
+        spans = GLOBAL_TIMER.spans()
+    finally:
+        GLOBAL_TIMER.enabled = was
+    return cam, slam, feats, samples, spans
 
 
 class TestProfiling:
@@ -105,10 +113,11 @@ class TestProfiling:
         assert jout == tout and t.stats() == j.stats()
 
     def test_slam_stage_sites(self, feature_slam, capsys):
-        """SLAM.track_features times `track_map`; process_keyframe times
-        the mapper's five stages; print_time_stats reports them."""
-        cam, slam, feats, samples = feature_slam
-        assert len(samples["track_map"]) == 12
+        """SLAM.track_features is a `frame` span a call; process_keyframe
+        times the mapper's five stages; print_time_stats reports them."""
+        cam, slam, feats, samples, _ = feature_slam
+        assert len(samples["frame"]) == 12
+        assert 1 <= len(samples["track_map"]) <= 12
         n_kf_processed = len(samples["mp_cull"])
         assert n_kf_processed >= 1
         for k in ("mp_create", "fuse", "kf_cull"):
@@ -116,7 +125,7 @@ class TestProfiling:
         assert 1 <= len(samples["local_ba"]) <= n_kf_processed
         slam.print_time_stats()
         out = capsys.readouterr().out
-        assert "track_map" in out and "local_ba" in out
+        assert "frame" in out and "track_map" in out and "local_ba" in out
 
 
 class TestYamlSettings:
@@ -235,7 +244,7 @@ class TestViz:
         from orb_slam3_comments_ghr_tpu.utils import viz as jviz
         from orb_slam3_comments_ghr_torch.utils import viz
 
-        cam, slam, feats, _ = feature_slam
+        cam, slam, feats, _, _ = feature_slam
         img = np.zeros((cam.height, cam.width), np.float32)
         f_path = str(tmp_path / "frame.png")
         m_path = str(tmp_path / "map.png")

@@ -3,7 +3,8 @@ beside the tracker), and the tracker's loss counters, on the CPU.
 
 - `ops/window_match.count_launch` (what the wrapper calls where it launches
   the kernel) and `utils/profiling.StageTimer.stage` (`GLOBAL_TIMER`): two
-  threads make 10 000 counted calls each; the totals are exact.
+  threads make 10 000 counted calls each; the totals are exact, and each
+  stage is one span with an id of its own.
 - `Tracker.n_lost_resets` / `n_submap_spawns` (JAX `tracker.py:982`,
   `:998`), which `scripts/run_gt_replay.py` reads: the same lost sequence
   through both packages' trackers (a young map lost, then an established
@@ -67,6 +68,9 @@ def test_stage_timer_keeps_every_sample():
 
     _two_threads(staged)
     assert timer.stats()["local_ba"]["n"] == 2 * CALLS
+    spans = timer.spans()
+    assert len(spans) == 2 * CALLS and len({s.id for s in spans}) == 2 * CALLS
+    assert all(s.parent is None for s in spans)
 
 
 def _tracker(pkg: str):
