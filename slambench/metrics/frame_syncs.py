@@ -1,6 +1,6 @@
 """Host waits on the device (stream, device and event synchronizes, blocking
 copies) charged to the port's spans, per traced frame without a keyframe,
-median over the profiled slice (`spans.reduce`); the harness's own
+median over the profiled slice (`spans.charge`); the harness's own
 synchronizes lie in its ranges and are not counted."""
 
 import statistics

@@ -1,29 +1,27 @@
-"""A run of a cell with the port's span tracer on, and the reduction of a
-profiler trace by the innermost open range.
+"""A run of a cell with the port's span tracer on, and the charging of a
+profiler trace's launches and host syncs to the innermost open range.
 
-    python -m slambench.spans --workload <name> --seed <n> --seconds <s> \
-        [--trace 0|1] [--tracer 0|1]
+    python -m slambench.spans --workload <name> --seed <n> --seconds <s> [--trace 0|1]
 
 prints one JSON line: the result line of `run.run` for the same arguments,
 and under `spans` what the port's spans (`utils/profiling.GLOBAL_TIMER`)
 give: the per-layer numbers of the readers `metrics/local_ba_ms.py`,
 `keyframe_rest_ms.py`, `keyframe_launches.py` and `frame_syncs.py`; with
-`--trace 1`, the launches each traced frame charges to port spans, the
-longest idle gaps of the device named by the innermost port span open when
-each began, and a table by span name: calls, mean ms, self ms and device ms
-over the window, and the launches and host syncs charged to the name per
-call in the profiled slice.
+`--trace 1`, the launches each traced frame charges to port spans and a
+table by span name: calls, mean ms, self ms and device ms over the window,
+and the launches and host syncs charged to the name per call in the
+profiled slice.
 
-With `--tracer 1` the tracer is reset and switched on once the warm-up has
-ended (the hook of `run.run`) and off when the window closes; `--tracer 0`
-leaves it off, so that the same command with both shows what the tracer
-costs. With `--trace 1` the harness's `trace.reduce` gets the port's span
-names beside its own ranges: the GPU user-annotation events of the spans
-are then not counted as device work, and `breakdown.idle_gaps` names a gap
-by the innermost span or range open when it began. It needs a CUDA card, as
-`run.py` does.
+The tracer is reset and switched on once the warm-up has ended (the hook of
+`run.run`) and off when the window closes. The same command through
+`slambench.run` is the same run with the tracer off, so the two on the same
+seeds show what the tracer costs. With `--trace 1` the harness's
+`trace.reduce` gets the port's span names beside its own ranges: the GPU
+user-annotation events of the spans are then not counted as device work,
+and `breakdown.idle_gaps` names a gap by the innermost span or range open
+when it began. It needs a CUDA card, as `run.py` does.
 
-`reduce(prof, harness_ranges, port_spans)` charges each launch call
+`charge(prof, harness_ranges, port_spans)` charges each launch call
 (`trace.LAUNCH_CALLS`) and each host wait on the device (`SYNC_CALLS`) to
 the innermost range open on its thread: a harness `Timer`'s own
 synchronize lies in its harness range, so it is not charged to the
@@ -83,40 +81,36 @@ def _charge(ranges_by_thread, calls):
     return out
 
 
-def reduce(prof, harness_ranges, port_spans) -> dict:
+def charge(prof, harness_ranges, port_spans) -> dict:
     """Launch calls and host syncs per traced frame, by the innermost open
     range; launches inside each `keyframe` span; calls, launches and syncs
-    by range name over the slice; and the ten longest idle gaps of the
-    device, each named by the innermost port span open when it began (else
-    the innermost harness range, else "host")."""
+    by range name over the slice."""
     import torch
 
-    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    cpu = torch.autograd.DeviceType.CPU
     port = set(port_spans)
     names = set(harness_ranges) | port | {trace_mod.FRAME}
-    frames, keyframes, device = [], [], []
+    frames, keyframes = [], []
     ranges = defaultdict(list)
     launches, syncs = [], []
     for e in prof.events():
+        if e.device_type != cpu:
+            continue
         a, b = e.time_range.start, e.time_range.end
-        if e.device_type == cpu:
-            if e.name == trace_mod.FRAME:
-                frames.append((a, b))
-            if e.name in names:
-                ranges[e.thread].append((a, b, e.name))
-                if e.name == KEYFRAME:
-                    keyframes.append((a, b))
-            elif e.name in trace_mod.LAUNCH_CALLS:
-                launches.append((a, e.thread))
-            elif e.name in SYNC_CALLS:
-                syncs.append((a, e.thread))
-        elif e.device_type == cuda and e.name not in names:
-            device.append((a, b))
+        if e.name == trace_mod.FRAME:
+            frames.append((a, b))
+        if e.name in names:
+            ranges[e.thread].append((a, b, e.name))
+            if e.name == KEYFRAME:
+                keyframes.append((a, b))
+        elif e.name in trace_mod.LAUNCH_CALLS:
+            launches.append((a, e.thread))
+        elif e.name in SYNC_CALLS:
+            syncs.append((a, e.thread))
     if not frames:
         return {}
     frames.sort()
-    launched, waited = _charge(ranges, launches), _charge(ranges, syncs)
-    charged = {"launches": launched, "syncs": waited}
+    charged = {"launches": _charge(ranges, launches), "syncs": _charge(ranges, syncs)}
     at = {key: [t for t, _ in calls] for key, calls in charged.items()}
     per_frame = []
     by_range = defaultdict(Counter)
@@ -137,16 +131,6 @@ def reduce(prof, harness_ranges, port_spans) -> dict:
     launch_t = at["launches"]
     kf_launches = [bisect.bisect_left(launch_t, b) - bisect.bisect_left(launch_t, a)
                    for a, b in sorted(keyframes) if w0 <= a < w1]
-    busy = trace_mod._union([(max(a, w0), min(b, w1)) for a, b in device if b > w0 and a < w1])
-    edges = [(w0, w0)] + [tuple(x) for x in busy] + [(w1, w1)]
-    gaps = sorted(((s1 - e0, e0) for (_, e0), (s1, _) in zip(edges, edges[1:]) if s1 > e0),
-                  reverse=True)
-    every = [r for rs in ranges.values() for r in rs]
-    named = []
-    for length, at in gaps[:10]:
-        open_ = [(b - a, n) for a, b, n in every if a <= at < b]
-        inner = [x for x in open_ if x[1] in port] or open_
-        named.append([min(inner)[1] if inner else "host", length * 1e-6])
     return {
         "port_launches_per_frame": [sum(n for k, n in r["launches"].items() if k in port)
                                     for r in per_frame],
@@ -155,7 +139,6 @@ def reduce(prof, harness_ranges, port_spans) -> dict:
         "keyframe_in_frame": [r["keyframe"] for r in per_frame],
         "keyframe_launches": kf_launches,
         "by_range": {name: dict(c) for name, c in by_range.items() if name is not None},
-        "idle_gaps_by_span": named,
     }
 
 
@@ -187,8 +170,8 @@ def table(spans: list[dict], summary: dict) -> dict:
 
 
 def traced_run(args, device) -> dict:
-    """`run.run` for `args` (`--tracer` included) on `device`, with the
-    port's spans read: the result dict with its `spans` part."""
+    """`run.run` for `args` on `device` with the port's spans on, and read:
+    the result dict with its `spans` part."""
     from orb_slam3_comments_ghr_torch.utils.profiling import GLOBAL_TIMER, StageTimer
 
     from . import probes
@@ -199,7 +182,7 @@ def traced_run(args, device) -> dict:
     def reduce_too(orig):
         def wrapper(prof, ranges):
             out = orig(prof, tuple(ranges) + port)
-            out.update(reduce(prof, ranges, port))
+            out.update(charge(prof, ranges, port))
             summary.update(out)
             return out
         return wrapper
@@ -212,7 +195,7 @@ def traced_run(args, device) -> dict:
 
     def on(slam):
         GLOBAL_TIMER.reset()
-        GLOBAL_TIMER.enabled = bool(args.tracer)
+        GLOBAL_TIMER.enabled = True
 
     patches = probes.Patches()
     patches.wrap(trace_mod, "reduce", reduce_too)
@@ -236,7 +219,6 @@ def traced_run(args, device) -> dict:
         "port_launches_median": float(statistics.median(kf_free)) if kf_free else None,
         "port_launches_per_frame": summary.get("port_launches_per_frame"),
         "keyframe_in_frame": summary.get("keyframe_in_frame"),
-        "idle_gaps": summary.get("idle_gaps_by_span"),
         "table": table(spans, summary),
     }
     result["check_lines"] = lines
@@ -249,7 +231,6 @@ def parse_args(argv=None):
     ap.add_argument("--seed", type=int, required=True)
     ap.add_argument("--seconds", type=float, required=True)
     ap.add_argument("--trace", type=int, choices=(0, 1), default=1)
-    ap.add_argument("--tracer", type=int, choices=(0, 1), default=1)
     return ap.parse_args(argv)
 
 

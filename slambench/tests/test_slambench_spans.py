@@ -1,9 +1,9 @@
-"""`spans.reduce` on a synthetic list of profiler events: launches and host
+"""`spans.charge` on a synthetic list of profiler events: launches and host
 syncs go to the innermost range open on their thread, a harness `Timer`'s
-synchronize stays in its harness range, launches are counted inside each
-`keyframe` span, and an idle gap is named by the innermost port span open
-when it began. `trace.reduce` given the port's span names keeps their GPU
-annotations out of the device's busy time. Each reader of the spans
+synchronize stays in its harness range, and launches are counted inside
+each `keyframe` span. `trace.reduce` given the port's span names keeps
+their GPU annotations out of the device's busy time and names an idle gap
+by the innermost port span open when it began. Each reader of the spans
 returns None on an empty context and reads what the run gives it."""
 
 import sys
@@ -58,7 +58,7 @@ def two_frames():
 
 
 def test_launches_and_syncs_go_to_the_innermost_range():
-    out = spans.reduce(two_frames(), HARNESS, PORT)
+    out = spans.charge(two_frames(), HARNESS, PORT)
     # frame 0: frame 2 (t=2 from the other thread, t=5), extract 2,
     # track_map 1, pose_lm 2; the launch at 39 lies in frame_program after
     # the port's spans closed. Frame 1: frame 1, local_ba 2; the one at 185
@@ -79,8 +79,8 @@ def test_launches_and_syncs_go_to_the_innermost_range():
 
 
 def test_idle_gaps_are_named_by_the_innermost_port_span():
-    out = spans.reduce(two_frames(), HARNESS, PORT)
-    named = {round(s * 1e6): n for n, s in out["idle_gaps_by_span"]}
+    out = trace.reduce(two_frames(), HARNESS + PORT)
+    named = {round(s * 1e6): n for n, s in out["idle_gaps"]}
     # busy: [2,3], [14,16], [130,140]; the gap at 0 opens before any port span
     assert named == {2: trace.FRAME, 11: "frame", 114: "extract", 60: "frame"}
 
@@ -102,7 +102,7 @@ def test_readers_read_the_spans_and_the_trace():
          {"id": 1, "name": "local_ba", "parent": 0, "ms": 60.0},
          {"id": 2, "name": "keyframe", "parent": None, "ms": 50.0},
          {"id": 3, "name": "local_ba", "parent": 9, "ms": 20.0}]
-    ctx = {"spans": s, "trace": spans.reduce(two_frames(), HARNESS, PORT)}
+    ctx = {"spans": s, "trace": spans.charge(two_frames(), HARNESS, PORT)}
     read = {n: run.metric_reader(n)(ctx) for n in spans.NEW_METRICS}
     assert read == {"local_ba_ms": 40.0, "keyframe_rest_ms": 45.0, "keyframe_launches": 3.0,
                     "frame_syncs": 1.0}
