@@ -2857,9 +2857,11 @@ def phase14_stereo_inertial(wm_mod, device, n: int, pipelined: bool = True,
     poses, metric ATE < 15 cm; pipelined < 4 cm, ROADMAP C17); n = 150 at
     phase 7's config to phase 7's bars (IMU initialized, >= 95 % tracked,
     metric ATE < 8 cm). Loop closing off, as both. The tracker's VI refinement must be captured into its
-    CUDA graph and replayed (beside the worker, when there is one); fails
-    also on a worker error or launches that differ from the matcher
-    calls."""
+    CUDA graph and replayed (beside the worker, when there is one) in every
+    run that refines a frame with the IMU, and the 150-frame runs must; the
+    60-frame run with the worker may end before the worker's first IMU init
+    does. Fails also on a worker error or launches that differ from the
+    matcher calls."""
     from orb_slam3_comments_ghr_torch.ops import cameras
     from orb_slam3_comments_ghr_torch.system import SLAM
     from orb_slam3_comments_ghr_torch.utils import config, evaluation
@@ -2890,6 +2892,16 @@ def phase14_stereo_inertial(wm_mod, device, n: int, pipelined: bool = True,
         return run_graph(*args)
 
     slam.tracker._pose_inertial = counted_graph
+    # frames the tracker refined with the IMU (an IMU-initialized map); with
+    # the worker, the 60-frame run can end before the worker's first IMU
+    # init does, and then no frame reaches the graph
+    vi_refine, refines = slam.tracker._vi_refine, [0]
+
+    def counted_refine(*args):
+        refines[0] += 1
+        return vi_refine(*args)
+
+    slam.tracker._vi_refine = counted_refine
     track = slam.track_stereo_pipelined if pipelined else slam.track_stereo
     calls = {"tracking": 0, "init": 0, "fuse": 0}
     originals = _count_matchers(wm_mod, calls, ThreadStack(), {}, {})
@@ -2917,8 +2929,8 @@ def phase14_stereo_inertial(wm_mod, device, n: int, pipelined: bool = True,
           f"{seen['worker_keyframes']}, the busy mapper held back {seen['held_back']}), metric ATE "
           f"{ate * 1e3:.3f} mm, worker_errors {slam.worker_errors}; VI refinement graphs "
           f"captured {len(captured_busy)} (with the worker busy: {sum(captured_busy)}), calls "
-          f"{replays[0]}; per-call host ms (median / p75 / worst) {stats['median_ms']:.3f} / "
-          f"{stats['p75_ms']:.3f} / {stats['max_ms']:.3f}")
+          f"{replays[0]}, IMU-refined frames {refines[0]}; per-call host ms (median / p75 / worst) "
+          f"{stats['median_ms']:.3f} / {stats['p75_ms']:.3f} / {stats['max_ms']:.3f}")
     _check_launches(f"phase14 (c) {mode} {n}", launches, calls)
     if n == PHASE14_VI_FRAMES:
         # < 40 mm: on an H100 the deep pipeline's stale seed after the
@@ -2931,7 +2943,9 @@ def phase14_stereo_inertial(wm_mod, device, n: int, pipelined: bool = True,
     if not ok or slam.worker_errors != 0:
         raise AssertionError(f"phase14 (c) {mode} {n}: IMU init {imu_init}, {len(traj)} poses, "
                              f"metric ATE {ate:.4f} m, {slam.worker_errors} worker errors")
-    if not captured_busy or replays[0] == 0 or calls["init"] != 0:
+    if n == PHASE7_FRAMES and refines[0] == 0:
+        raise AssertionError(f"phase14 (c) {mode} {n}: no frame was refined with the IMU")
+    if (refines[0] and (not captured_busy or replays[0] == 0)) or calls["init"] != 0:
         raise AssertionError(f"phase14 (c) {mode} {n}: the VI refinement's graph was not "
                              "captured and replayed, or the two-view init ran")
     return launches, calls, dict(mode=mode, imu_init=bool(imu_init), poses=len(traj), ate_m=ate,

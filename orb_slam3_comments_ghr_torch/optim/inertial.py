@@ -30,7 +30,7 @@ import torch
 from torch.func import jacfwd
 
 from ..ops import cameras, lie
-from ..utils.device import forward_ad_locked
+from ..utils.device import capture_graph, forward_ad_locked
 from . import imu as imu_mod
 from . import robust
 
@@ -309,15 +309,5 @@ class PoseInertialGraph:
     def _capture(cam, inputs):
         static = tuple(type(part)(*(t.clone() for t in part)) if hasattr(part, "_fields")
                        else tuple(t.clone() for t in part) for part in inputs)
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            for _ in range(2):
-                pose_inertial_optimize(cam, *static, None)
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        # thread_local: a mapping worker's allocations and syncs on its own
-        # stream, at the same time, do not break the capture
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            out = pose_inertial_optimize(cam, *static, None)
+        graph, out = capture_graph(lambda: pose_inertial_optimize(cam, *static, None))
         return [t for part in static for t in part], graph, out

@@ -10,6 +10,10 @@ step both succeeds and moves less than 1e-6. Testing that flag on the host
 would synchronise with the device in every iteration, so here every round
 runs all its iterations and, once the flag is set, `torch.where` freezes the
 whole carry: the same values as the early exit, with no host sync.
+
+With no host sync in its 40 steps, the LM can be captured: `PoseLMGraph`
+replays it from a CUDA graph on the card, as the tracker calls it on every
+frame.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops import cameras, lie
+from ..utils.device import capture_graph
 from . import robust
 
 
@@ -95,7 +100,7 @@ def optimize_pose(
             c = robust.huber_cost(chi2, delta2) if use_huber else chi2
             return torch.sum(torch.where(inlier, c, 0.0))
 
-        lam = torch.tensor(1e-3, dtype=R0.dtype, device=R0.device)
+        lam = torch.full((), 1e-3, dtype=R0.dtype, device=R0.device)
         done = torch.zeros((), dtype=torch.bool, device=R0.device)
         for _ in range(iters_per_round):
             chi2 = _chi2(r, row_mask, info)
@@ -129,3 +134,41 @@ def optimize_pose(
         inlier = obs.valid & (chi2 <= delta2)
 
     return R, t, inlier, torch.sum(inlier.to(torch.int32))
+
+
+class PoseLMGraph:
+    """`optimize_pose` as the frame program calls it on every frame
+    (`programs.track_against_points`, whose rows are always the local-point
+    cap), replayed from a CUDA graph. Eager, its 40 LM steps are ~9.4k small
+    kernels whose launches bound the host (PERF.md section 5); a replay
+    launches them all at once. One graph per camera, iterations and input shapes,
+    captured on the first call with a new key; each call copies its inputs
+    into the graph's buffers and replays. The outputs are clones: a caller
+    may hold one result (the deep pipeline's frames in flight, a re-track)
+    while the next call runs. On CPU tensors it is `optimize_pose` itself.
+    `captures`, `replays` and `eager` count the calls by how they ran (a
+    capturing call also replays)."""
+
+    def __init__(self):
+        self._graphs = {}
+        self.captures = self.replays = self.eager = 0
+
+    def __call__(self, cam: cameras.Camera, R0: torch.Tensor, t0: torch.Tensor, obs: PoseObs,
+                 iters_per_round: int = 10):
+        if R0.device.type != "cuda":
+            self.eager += 1
+            return optimize_pose(cam, R0, t0, obs, iters_per_round)
+        flat = (R0, t0, *obs)
+        key = (cam, iters_per_round) + tuple((x.shape, x.dtype) for x in flat)
+        if key not in self._graphs:
+            static = [x.clone() for x in flat]
+            self._graphs[key] = (static, *capture_graph(
+                lambda: optimize_pose(cam, static[0], static[1], PoseObs(*static[2:]),
+                                      iters_per_round)))
+            self.captures += 1
+        static, graph, out = self._graphs[key]
+        for buf, x in zip(static, flat):
+            buf.copy_(x)
+        graph.replay()
+        self.replays += 1
+        return tuple(x.clone() for x in out)

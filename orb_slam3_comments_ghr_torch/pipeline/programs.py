@@ -92,9 +92,12 @@ def track_against_points(
     n_levels: int = 8,
     scale: float = 1.2,
     iters_per_round: int = 10,
+    lm_graph: pose_opt.PoseLMGraph | None = None,
 ) -> TrackResult:
     """TrackLocalMap: the `track_map` span, with the pose LM its `pose_lm`
-    child (the span's self time is the window match and its checks)."""
+    child (the span's self time is the window match and its checks). The
+    LM runs through `lm_graph` (the tracker's `PoseLMGraph`) where one is
+    given, else eagerly."""
     with GLOBAL_TIMER.stage("track_map"):
         visible, uv_pred, level_pred, radius = _frustum_gate(cam, R0, t0, pts, n_levels, scale)
         # the window match encodes visibility as radius -1, as the TPU kernel's
@@ -125,8 +128,8 @@ def track_against_points(
             valid=ok,
         )
         with GLOBAL_TIMER.stage("pose_lm"):
-            R, t, inlier, n = pose_opt.optimize_pose(cam, R0, t0, obs,
-                                                     iters_per_round=iters_per_round)
+            lm = pose_opt.optimize_pose if lm_graph is None else lm_graph
+            R, t, inlier, n = lm(cam, R0, t0, obs, iters_per_round=iters_per_round)
         return TrackResult(
             R=R, t=t, match_feat=torch.where(ok, idx, -1), inlier=inlier & ok,
             visible=visible, n_inliers=n,
@@ -175,6 +178,7 @@ def extract_and_track(
     min_th: float = 7.0,
     th: float = 1.0,
     undistort: bool = False,
+    lm_graph: pose_opt.PoseLMGraph | None = None,
 ):
     """The per-frame program: ORB extraction + frustum-gated projection
     matching + pose LM. Returns (Features, TrackResult)."""
@@ -182,7 +186,8 @@ def extract_and_track(
         extract_cam, img, n_features=n_features, n_levels=n_levels, scale=scale,
         ini_th=ini_th, min_th=min_th, undistort=undistort,
     )
-    res = track_against_points(geom_cam, feats, pts, R0, t0, th=th, n_levels=n_levels, scale=scale)
+    res = track_against_points(geom_cam, feats, pts, R0, t0, th=th, n_levels=n_levels, scale=scale,
+                               lm_graph=lm_graph)
     return feats, res
 
 
@@ -237,6 +242,7 @@ def extract_and_track_stereo(
     min_th: float = 7.0,
     th: float = 1.0,
     undistort: bool = False,
+    lm_graph: pose_opt.PoseLMGraph | None = None,
 ):
     """The stereo per-frame program: both extractions, the row matcher,
     then projection matching and the pose LM, with no host sync between.
@@ -245,7 +251,8 @@ def extract_and_track_stereo(
         extract_cam, img_l, img_r, n_features=n_features, n_levels=n_levels, scale=scale,
         ini_th=ini_th, min_th=min_th, undistort=undistort,
     )
-    res = track_against_points(geom_cam, fl, pts, R0, t0, th=th, n_levels=n_levels, scale=scale)
+    res = track_against_points(geom_cam, fl, pts, R0, t0, th=th, n_levels=n_levels, scale=scale,
+                               lm_graph=lm_graph)
     return fl, res
 
 

@@ -147,6 +147,7 @@ class Tracker:
         self.body_vel = np.zeros(3, np.float32)  # body velocity in world
         self._pre_frame: Optional[imu_mod.Preintegrated] = None  # from the last frame
         self._pose_inertial = inertial.PoseInertialGraph()  # the VI refinement
+        self._pose_lm = pose_opt.PoseLMGraph()  # the frame program's pose LM
         self._last_prediction = None  # (R, t) predicted for the current frame
         self.device = resolve_device(device)
         self.generator = torch.Generator(device=self.device)
@@ -561,7 +562,8 @@ class Tracker:
         lp, ids = self._local_points_view()
         res, _ = _fetch_track(programs.track_against_points(
             self.cam, feats, lp, self._tensor(self.last_R), self._tensor(self.last_t),
-            th=self._search_th(), n_levels=self.cfg.n_levels, scale=self.cfg.scale_factor))
+            th=self._search_th(), n_levels=self.cfg.n_levels, scale=self.cfg.scale_factor,
+            lm_graph=self._pose_lm))
         if res.n_inliers < self.cfg.min_track_matches:
             return None
         return res, ids, self._view_version
@@ -620,6 +622,7 @@ class Tracker:
             res = programs.track_against_points(
                 self.cam, feats, lp, self._tensor(R0), self._tensor(t0),
                 th=self._search_th(), n_levels=cfg.n_levels, scale=cfg.scale_factor,
+                lm_graph=self._pose_lm,
             )
         res, close = _fetch_track(res, close)
         n_inl = res.n_inliers
@@ -638,7 +641,7 @@ class Tracker:
             view_v = self._view_version
             res, _ = _fetch_track(programs.track_against_points(
                 self.cam, feats, lp, self._tensor(self.last_R), self._tensor(self.last_t),
-                th=3.0, n_levels=cfg.n_levels, scale=cfg.scale_factor,
+                th=3.0, n_levels=cfg.n_levels, scale=cfg.scale_factor, lm_graph=self._pose_lm,
             ))
             n_inl = res.n_inliers
             if n_inl < cfg.min_track_matches:
@@ -932,7 +935,7 @@ class Tracker:
             lp, _ = self._candidate_local_view(kf)
             res = programs.track_against_points(
                 self.cam, feats, lp, R, t, th=2.5,
-                n_levels=self.cfg.n_levels, scale=self.cfg.scale_factor,
+                n_levels=self.cfg.n_levels, scale=self.cfg.scale_factor, lm_graph=self._pose_lm,
             )
             if int(res.n_inliers) >= max(20, n_inl):
                 R, t, n_inl = res.R, res.t, int(res.n_inliers)

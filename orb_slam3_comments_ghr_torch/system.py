@@ -192,6 +192,7 @@ class SLAM:
             n_features=self.cfg.n_features, n_levels=self.cfg.n_levels,
             scale=self.cfg.scale_factor, ini_th=self.cfg.ini_th_fast,
             min_th=self.cfg.min_th_fast, th=th, undistort=self._fisheye,
+            lm_graph=self.tracker._pose_lm,
         )
         return self._track(feats, timestamp, precomputed=(res,) if ready else None)
 
@@ -263,7 +264,8 @@ class SLAM:
             res = programs.track_only(
                 self.geom_cam, feats, lp, R0, t0,
                 th=max(self.tracker._prepared_th, 2.0 if steps > 1 else 1.0),
-                n_levels=self.cfg.n_levels, scale=self.cfg.scale_factor)
+                n_levels=self.cfg.n_levels, scale=self.cfg.scale_factor,
+                lm_graph=self.tracker._pose_lm)
             prepared = self.tracker._prepared
         self._pipe.append({
             "ts": timestamp, "feats": feats, "res": res, "prepared": prepared,
@@ -308,6 +310,7 @@ class SLAM:
             n_features=self.cfg.n_features, n_levels=self.cfg.n_levels,
             scale=self.cfg.scale_factor, ini_th=self.cfg.ini_th_fast,
             min_th=self.cfg.min_th_fast, th=th, undistort=self._fisheye,
+            lm_graph=self.tracker._pose_lm,
         )
         return self._track(feats, timestamp, precomputed=(res,) if ready else None)
 
@@ -672,8 +675,11 @@ class SLAM:
 
     def print_time_stats(self):
         """Tracking::PrintTimeStats: the stages of `GLOBAL_TIMER` (which
-        records only while `GLOBAL_TIMER.enabled` is set)."""
+        records only while `GLOBAL_TIMER.enabled` is set), then how the
+        tracker's pose LM calls ran (`PoseLMGraph`'s counters)."""
         GLOBAL_TIMER.print_time_stats()
+        lm = self.tracker._pose_lm
+        print(f"pose_lm graph: captures {lm.captures}, replays {lm.replays}, eager {lm.eager}")
 
     # ----------------------------------------------------------- persistence
     def save_atlas(self, path: str):

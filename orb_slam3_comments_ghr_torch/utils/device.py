@@ -1,6 +1,6 @@
 """Where the port's stateful parts run: the card unless the caller asks for
-another device; and the lock that keeps forward-mode AD to one thread at a
-time."""
+another device; the lock that keeps forward-mode AD to one thread at a
+time; and the capture of a CUDA graph."""
 
 from __future__ import annotations
 
@@ -39,3 +39,22 @@ def resolve_device(device=None) -> torch.device:
             "pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def capture_graph(run):
+    """(graph, out): `run()` captured into a CUDA graph on the card, and
+    what the captured call returned (the graph's own tensors, which each
+    replay overwrites). Two warm-up calls on a side stream come first, so
+    that library handles and workspaces exist before the capture."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    # thread_local: a mapping worker's allocations and syncs on its own
+    # stream, at the same time, do not break the capture
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        out = run()
+    return graph, out
