@@ -347,6 +347,7 @@ def phase2_slice(device, wm_mod, seq):
     Checks accuracy and the kernel's launch count, prints per-frame times and
     returns (launches, frame 1, the map)."""
     from orb_slam3_comments_ghr_torch.ops import cameras
+    from orb_slam3_comments_ghr_torch.optim import pose_opt
     from orb_slam3_comments_ghr_torch.pipeline import programs
     from orb_slam3_comments_ghr_torch.utils import synthetic
 
@@ -364,9 +365,11 @@ def phase2_slice(device, wm_mod, seq):
     R = torch.from_numpy(poses[0][0]).to(device)
     t = torch.from_numpy(poses[0][1]).to(device)
     errs, inliers = [], []
+    # the pose LM replayed from a CUDA graph, as the tracker runs it
+    lm = pose_opt.PoseLMGraph()
     wm_mod.launches = 0
     for i in range(1, PHASE2_FRAMES + 1):
-        _, res = programs.extract_and_track(cam, cam, frames[i], pts, R, t)
+        _, res = programs.extract_and_track(cam, cam, frames[i], pts, R, t, lm_graph=lm)
         R, t = res.R, res.t
         Rn, tn = R.cpu().numpy(), t.cpu().numpy()
         if not (np.isfinite(Rn).all() and np.isfinite(tn).all()):
@@ -394,8 +397,10 @@ def phase2_slice(device, wm_mod, seq):
     for i in range(1, PHASE2_FRAMES + 1):
         box = {}
         ext.append(host_ms(lambda: box.update(f=programs.extract_only(cam, frames[i]))))
-        trk.append(host_ms(lambda: programs.track_only(cam, box["f"], pts, *starts[i])))
-        fused.append(host_ms(lambda: programs.extract_and_track(cam, cam, frames[i], pts, *starts[i])))
+        trk.append(host_ms(lambda: programs.track_only(cam, box["f"], pts, *starts[i],
+                                                       lm_graph=lm)))
+        fused.append(host_ms(lambda: programs.extract_and_track(cam, cam, frames[i], pts,
+                                                                *starts[i], lm_graph=lm)))
     print(f"phase2 per-frame ms over {PHASE2_FRAMES} frames (median / p75): " + ", ".join(
         f"{k} {np.median(v):.3f} / {np.percentile(v, 75):.3f}"
         for k, v in (("extract_only", ext), ("track_only", trk), ("extract_and_track", fused))))
@@ -406,14 +411,17 @@ def phase3_against_cpu(device, frame, pts, pose):
     """The same frame through the port on the CPU (plain window match) and
     on the card: keypoints, descriptors and the tracked pose must agree."""
     from orb_slam3_comments_ghr_torch.ops import cameras
+    from orb_slam3_comments_ghr_torch.optim import pose_opt
     from orb_slam3_comments_ghr_torch.pipeline import programs
 
     cam = cameras.euroc_cam0()
     cpu = torch.device("cpu")
     R0, t0 = (torch.from_numpy(a) for a in pose)
-    f_g, r_g = programs.extract_and_track(cam, cam, frame, pts, R0.to(device), t0.to(device))
+    lm = pose_opt.PoseLMGraph()  # replayed on the card, eager on the CPU
+    f_g, r_g = programs.extract_and_track(cam, cam, frame, pts, R0.to(device), t0.to(device),
+                                          lm_graph=lm)
     f_c, r_c = programs.extract_and_track(
-        cam, cam, frame.to(cpu), type(pts)(*(x.to(cpu) for x in pts)), R0, t0)
+        cam, cam, frame.to(cpu), type(pts)(*(x.to(cpu) for x in pts)), R0, t0, lm_graph=lm)
     lvl0 = (f_c.level == 0) & f_c.valid
     same_kp = bool(torch.equal(f_g.xy.cpu()[lvl0], f_c.xy[lvl0]))
     kp_share = float((f_g.xy.cpu() == f_c.xy).all(-1).float().mean())
@@ -893,10 +901,13 @@ def depth_stages_against_cpu(device, seq, right, depth, slam):
     feats = {"stereo": fl._replace(u_right=ur, depth=d),
              "as mono": fl._replace(u_right=torch.full_like(ur, -1.0))}
     ms = {k: [] for k in feats}
+    lm = slam.tracker._pose_lm  # the pose LM's graph, as the tracker replays it
     for k in ("stereo", "as mono", "as mono", "stereo") * 5:
-        ms[k].append(host_ms(lambda: programs.track_against_points(cam, feats[k], lp, R, t)))
+        ms[k].append(host_ms(lambda: programs.track_against_points(cam, feats[k], lp, R, t,
+                                                                   lm_graph=lm)))
     for k, v in ms.items():
-        device = device_profile(lambda: programs.track_against_points(cam, feats[k], lp, R, t))[0]
+        device = device_profile(lambda: programs.track_against_points(cam, feats[k], lp, R, t,
+                                                                      lm_graph=lm))[0]
         out[f"track_against_points {k}"] = {"host_ms": float(np.median(v)), "device_ms": device}
     print("phase5 track_against_points on the last local map, host ms (median of 10, in turns) / "
           "device ms: " + ", ".join(f"{k} {out[f'track_against_points {k}']['host_ms']:.3f} / "
@@ -2857,11 +2868,9 @@ def phase14_stereo_inertial(wm_mod, device, n: int, pipelined: bool = True,
     poses, metric ATE < 15 cm; pipelined < 4 cm, ROADMAP C17); n = 150 at
     phase 7's config to phase 7's bars (IMU initialized, >= 95 % tracked,
     metric ATE < 8 cm). Loop closing off, as both. The tracker's VI refinement must be captured into its
-    CUDA graph and replayed (beside the worker, when there is one) in every
-    run that refines a frame with the IMU, and the 150-frame runs must; the
-    60-frame run with the worker may end before the worker's first IMU init
-    does. Fails also on a worker error or launches that differ from the
-    matcher calls."""
+    CUDA graph and replayed (beside the worker, when there is one); fails
+    also on a worker error or launches that differ from the matcher calls.
+    Prints the frames the tracker refined with the IMU."""
     from orb_slam3_comments_ghr_torch.ops import cameras
     from orb_slam3_comments_ghr_torch.system import SLAM
     from orb_slam3_comments_ghr_torch.utils import config, evaluation
@@ -2892,9 +2901,7 @@ def phase14_stereo_inertial(wm_mod, device, n: int, pipelined: bool = True,
         return run_graph(*args)
 
     slam.tracker._pose_inertial = counted_graph
-    # frames the tracker refined with the IMU (an IMU-initialized map); with
-    # the worker, the 60-frame run can end before the worker's first IMU
-    # init does, and then no frame reaches the graph
+    # frames the tracker refined with the IMU (an IMU-initialized map)
     vi_refine, refines = slam.tracker._vi_refine, [0]
 
     def counted_refine(*args):
@@ -2943,9 +2950,7 @@ def phase14_stereo_inertial(wm_mod, device, n: int, pipelined: bool = True,
     if not ok or slam.worker_errors != 0:
         raise AssertionError(f"phase14 (c) {mode} {n}: IMU init {imu_init}, {len(traj)} poses, "
                              f"metric ATE {ate:.4f} m, {slam.worker_errors} worker errors")
-    if n == PHASE7_FRAMES and refines[0] == 0:
-        raise AssertionError(f"phase14 (c) {mode} {n}: no frame was refined with the IMU")
-    if (refines[0] and (not captured_busy or replays[0] == 0)) or calls["init"] != 0:
+    if not captured_busy or replays[0] == 0 or calls["init"] != 0:
         raise AssertionError(f"phase14 (c) {mode} {n}: the VI refinement's graph was not "
                              "captured and replayed, or the two-view init ran")
     return launches, calls, dict(mode=mode, imu_init=bool(imu_init), poses=len(traj), ate_m=ate,

@@ -47,9 +47,6 @@ def _locked(fn):
 
     return wrapper
 
-# byte-popcount lookup for vectorized Hamming distances
-_POPCNT8 = np.array([bin(i).count("1") for i in range(256)], np.uint8)
-
 
 @dataclasses.dataclass
 class MapConfig:
@@ -505,19 +502,19 @@ class MapState:
         self.mp_max_dist[ids] = dist * (sf ** level)
         self.mp_min_dist[ids] = self.mp_max_dist[ids] / (sf ** (cfg.n_levels - 1))
 
-        # distinctive descriptor: min median Hamming among observations
+        # distinctive descriptor: min median Hamming among observations,
+        # the pairs' distances counted 64 bits at a time and each row's
+        # median read from its sorted valid entries (the even count's two
+        # middle values averaged, as np.median does)
         descs = self.kf_feat_desc[kf_safe, idx_safe]          # (P, D, 8) u32
-        bytes_ = descs.view(np.uint8).reshape(len(ids), D, 32)
-        x = bytes_[:, :, None, :] ^ bytes_[:, None, :, :]     # (P, D, D, 32)
-        dmat = _POPCNT8[x].sum(-1).astype(np.float32)         # (P, D, D)
-        big = 1e9
-        dmat = np.where(mask[:, :, None] & mask[:, None, :], dmat, np.nan)
-        import warnings
-        with warnings.catch_warnings():
-            # single-observation points produce all-NaN rows by design
-            warnings.simplefilter("ignore", RuntimeWarning)
-            med = np.nanmedian(np.where(mask[:, :, None], dmat, np.nan), axis=2)
-        med = np.where(mask, np.nan_to_num(med, nan=big), big)
+        words = np.ascontiguousarray(descs).view(np.uint64)   # (P, D, 4)
+        bits = np.bitwise_count(words[:, :, None, :] ^ words[:, None, :, :])  # (P, D, D, 4)
+        dmat = bits[..., 0].astype(np.float32) + bits[..., 1] + bits[..., 2] + bits[..., 3]
+        srt = np.sort(np.where(mask[:, None, :], dmat, np.inf), axis=2)
+        cnt = mask.sum(1)
+        big = np.float32(1e9)
+        mid = (srt[ar, :, (np.maximum(cnt, 1) - 1) // 2] + srt[ar, :, cnt // 2]) / np.float32(2)
+        med = np.where(mask, mid, big)
         best = med.argmin(axis=1)
         self.mp_desc[ids] = descs[ar, best]
         self.mp_angle[ids] = self.kf_feat_angle[kf_safe[ar, best],

@@ -50,8 +50,19 @@ class Camera:
         return self.bf / self.fx if self.bf > 0 else 0.0
 
 
+_K_ON_CARD: dict = {}
+
+
 def camera_matrix(cam: Camera, device=None) -> torch.Tensor:
-    """The (3,3) float32 intrinsic matrix, the JAX package's `Camera.K`."""
+    """The (3,3) float32 intrinsic matrix, the JAX package's `Camera.K`. On
+    the card it is made once per camera and device and shared (its callers
+    only read it): a new one is a blocking copy from the host, which the
+    mapper's new-point program would make twice per neighbour keyframe."""
+    if device is not None and torch.device(device).type == "cuda":
+        key = (cam, torch.device(device))
+        if key not in _K_ON_CARD:
+            _K_ON_CARD[key] = camera_matrix(cam).to(key[1])
+        return _K_ON_CARD[key]
     return torch.tensor(
         [[cam.fx, 0.0, cam.cx], [0.0, cam.fy, cam.cy], [0.0, 0.0, 1.0]],
         dtype=torch.float32, device=device,

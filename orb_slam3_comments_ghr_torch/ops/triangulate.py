@@ -16,16 +16,27 @@ def triangulate(P1: torch.Tensor, P2: torch.Tensor, x1: torch.Tensor, x2: torch.
     """P1, P2: (3,4) or (...,3,4) projection matrices; x1, x2: (...,2)
     pixel coordinates matching P's convention. Returns (...,3) Euclidean
     points."""
+    return dlt_point(torch.linalg.svd(dlt_rows(P1, P2, x1, x2)).Vh)
+
+
+def dlt_rows(P1: torch.Tensor, P2: torch.Tensor, x1: torch.Tensor, x2: torch.Tensor):
+    """The (...,4,4) design matrices of `triangulate`: a batch of P2 (e.g.
+    candidate motions) against one P1 broadcasts."""
     rows = [
         x1[..., 0, None] * P1[..., 2, :] - P1[..., 0, :],
         x1[..., 1, None] * P1[..., 2, :] - P1[..., 1, :],
         x2[..., 0, None] * P2[..., 2, :] - P2[..., 0, :],
         x2[..., 1, None] * P2[..., 2, :] - P2[..., 1, :],
     ]
-    # a batch of P2 (e.g. candidate motions) against one P1 broadcasts
-    A = torch.stack(torch.broadcast_tensors(*rows), dim=-2)  # (...,4,4)
-    # smallest right singular vector; its sign cancels in the division
-    X = torch.linalg.svd(A).Vh[..., 3, :]
+    return torch.stack(torch.broadcast_tensors(*rows), dim=-2)
+
+
+def dlt_point(Vh: torch.Tensor):
+    """The Euclidean points from the design matrices' right singular
+    vectors Vh (...,4,4): the smallest one, whose sign cancels in the
+    division. The SVD between `dlt_rows` and this waits on the host (its
+    error check), so a CUDA graph may hold either side but not it."""
+    X = Vh[..., 3, :]
     w = X[..., 3]
     w = torch.where(torch.abs(w) < 1e-12, 1e-12, w)
     return X[..., :3] / w[..., None]

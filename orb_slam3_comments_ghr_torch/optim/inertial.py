@@ -30,7 +30,7 @@ import torch
 from torch.func import jacfwd
 
 from ..ops import cameras, lie
-from ..utils.device import capture_graph, forward_ad_locked
+from ..utils.device import GraphCache, forward_ad_locked
 from . import imu as imu_mod
 from . import robust
 
@@ -274,40 +274,18 @@ def pose_inertial_optimize(cam: cameras.Camera, state0: VIState, prev: VIState,
     return st, inlier, inlier.sum(), next_prior
 
 
-class PoseInertialGraph:
+class PoseInertialGraph(GraphCache):
     """`pose_inertial_optimize` without a prior, as the tracker calls it on
     every IMU-ready frame, replayed from a CUDA graph. Its 10 LM steps of
     forward-mode Jacobians are ~11k small kernels whose launches bound the
     host (PERF.md section 5); a replay issues them at once. One graph per
-    camera and input shapes, captured on the first call after two warm-up
-    runs (library handles and workspaces); each call copies its inputs into
-    the graph's buffers. The raw IMU samples are not read by the
-    optimization and vary in number, so they are left out. The outputs are
-    the graph's own tensors, overwritten by the next call. On CPU tensors
-    it is `pose_inertial_optimize` itself."""
-
-    def __init__(self):
-        self._graphs = {}
+    camera and input shapes (`GraphCache`). The raw IMU samples are not
+    read by the optimization and vary in number, so they are left out. The
+    outputs are the graph's own tensors, overwritten by the next call. On
+    CPU tensors it is `pose_inertial_optimize` itself."""
 
     def __call__(self, cam: cameras.Camera, state0: VIState, prev: VIState,
                  pre: imu_mod.Preintegrated, obs, Tcb: tuple):
-        if state0.pwb.device.type != "cuda":
-            return pose_inertial_optimize(cam, state0, prev, pre, obs, Tcb, None)
         pre = pre._replace(acc=pre.acc[:0], gyr=pre.gyr[:0], dts=pre.dts[:0])
-        inputs = (state0, prev, pre, obs, tuple(Tcb))
-        flat = [t for part in inputs for t in part]
-        key = (cam,) + tuple((t.shape, t.dtype) for t in flat)
-        if key not in self._graphs:
-            self._graphs[key] = self._capture(cam, inputs)
-        buffers, graph, out = self._graphs[key]
-        for buf, t in zip(buffers, flat):
-            buf.copy_(t)
-        graph.replay()
-        return out
-
-    @staticmethod
-    def _capture(cam, inputs):
-        static = tuple(type(part)(*(t.clone() for t in part)) if hasattr(part, "_fields")
-                       else tuple(t.clone() for t in part) for part in inputs)
-        graph, out = capture_graph(lambda: pose_inertial_optimize(cam, *static, None))
-        return [t for part in static for t in part], graph, out
+        return super().__call__(lambda *a: pose_inertial_optimize(cam, *a, None), cam,
+                                state0, prev, pre, obs, tuple(Tcb))

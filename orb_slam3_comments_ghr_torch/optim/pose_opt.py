@@ -23,7 +23,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops import cameras, lie
-from ..utils.device import capture_graph
+from ..utils.device import GraphCache
 from . import robust
 
 
@@ -136,39 +136,18 @@ def optimize_pose(
     return R, t, inlier, torch.sum(inlier.to(torch.int32))
 
 
-class PoseLMGraph:
+class PoseLMGraph(GraphCache):
     """`optimize_pose` as the frame program calls it on every frame
     (`programs.track_against_points`, whose rows are always the local-point
     cap), replayed from a CUDA graph. Eager, its 40 LM steps are ~9.4k small
     kernels whose launches bound the host (PERF.md section 5); a replay
-    launches them all at once. One graph per camera, iterations and input shapes,
-    captured on the first call with a new key; each call copies its inputs
-    into the graph's buffers and replays. The outputs are clones: a caller
-    may hold one result (the deep pipeline's frames in flight, a re-track)
-    while the next call runs. On CPU tensors it is `optimize_pose` itself.
-    `captures`, `replays` and `eager` count the calls by how they ran (a
-    capturing call also replays)."""
-
-    def __init__(self):
-        self._graphs = {}
-        self.captures = self.replays = self.eager = 0
+    launches them all at once. One graph per camera, iterations and input
+    shapes (`GraphCache`). The outputs are clones: a caller may hold one
+    result (the deep pipeline's frames in flight, a re-track) while the next
+    call runs. On CPU tensors it is `optimize_pose` itself."""
 
     def __call__(self, cam: cameras.Camera, R0: torch.Tensor, t0: torch.Tensor, obs: PoseObs,
                  iters_per_round: int = 10):
-        if R0.device.type != "cuda":
-            self.eager += 1
-            return optimize_pose(cam, R0, t0, obs, iters_per_round)
-        flat = (R0, t0, *obs)
-        key = (cam, iters_per_round) + tuple((x.shape, x.dtype) for x in flat)
-        if key not in self._graphs:
-            static = [x.clone() for x in flat]
-            self._graphs[key] = (static, *capture_graph(
-                lambda: optimize_pose(cam, static[0], static[1], PoseObs(*static[2:]),
-                                      iters_per_round)))
-            self.captures += 1
-        static, graph, out = self._graphs[key]
-        for buf, x in zip(static, flat):
-            buf.copy_(x)
-        graph.replay()
-        self.replays += 1
-        return tuple(x.clone() for x in out)
+        out = super().__call__(lambda *a: optimize_pose(cam, *a, iters_per_round),
+                               (cam, iters_per_round), R0, t0, obs)
+        return out if R0.device.type != "cuda" else tuple(x.clone() for x in out)

@@ -327,7 +327,13 @@ def triangulate_matches(cam: cameras.Camera, R1, t1, R2, t2, uv1, uv2, level1, l
     K = cameras.camera_matrix(cam, uv1.device)
     X = triangulate.triangulate(triangulate.projection_matrix(K, R1, t1),
                                 triangulate.projection_matrix(K, R2, t2), uv1, uv2)
+    return X, _triangulation_gates(cam, X, R1, t1, R2, t2, uv1, uv2, level1, level2, ok, ur1,
+                                   ur2, scale)
 
+
+def _triangulation_gates(cam, X, R1, t1, R2, t2, uv1, uv2, level1, level2, ok, ur1, ur2,
+                         scale: float):
+    """`triangulate_matches`' gates on the points X."""
     def checks(Rk, tk, uvk, urk, lvlk):
         pc = lie.se3_apply(Rk, tk, X)
         z = pc[..., 2]
@@ -352,24 +358,51 @@ def triangulate_matches(cam: cameras.Camera, R1, t1, R2, t2, uv1, uv2, level1, l
     ratio_octave = scale ** (level1.to(torch.float32) - level2.to(torch.float32))
     rf = 1.5 * scale
     scale_ok = (ratio_dist * rf > ratio_octave) & (ratio_dist < ratio_octave * rf)
-    good = ok & ok1 & ok2 & (cosp < 0.9998) & scale_ok & torch.isfinite(X).all(-1)
-    return X, good
+    return ok & ok1 & ok2 & (cosp < 0.9998) & scale_ok & torch.isfinite(X).all(-1)
+
+
+def _pair_rows(cam, desc1, xy1, level1, free1, R1, t1, desc2, xy2, level2, free2, R2, t2):
+    """One neighbour's epipolar match and the DLT design matrices of its
+    candidate pairs: (idx, ok, A (N,4,4))."""
+    R12 = R1 @ R2.T
+    idx, ok = epipolar_match(cam, desc1, xy1, level1, free1, desc2, xy2, level2, free2,
+                             R12, t1 - R12 @ t2)
+    K = cameras.camera_matrix(cam, xy1.device)
+    A = triangulate.dlt_rows(triangulate.projection_matrix(K, R1, t1),
+                             triangulate.projection_matrix(K, R2, t2), xy1, xy2[idx.long()])
+    return idx, ok, A
+
+
+def _pair_points(cam, Vh, R1, t1, R2, t2, xy1, xy2, level1, level2, ur1, ur2, idx, ok,
+                 scale: float):
+    """One neighbour's points from the design matrices' SVD, and their
+    gates: (X, good)."""
+    sel = idx.long()
+    X = triangulate.dlt_point(Vh)
+    return X, _triangulation_gates(cam, X, R1, t1, R2, t2, xy1, xy2[sel], level1, level2[sel],
+                                   ok, ur1, ur2[sel], scale)
 
 
 def map_new_points_multi(cam: cameras.Camera, desc1, xy1, level1, ur1, free1, R1, t1,
-                         desc2s, xy2s, level2s, ur2s, free2s, R2s, t2s, scale: float = 1.2):
+                         desc2s, xy2s, level2s, ur2s, free2s, R2s, t2s, scale: float = 1.2,
+                         graphs=None):
     """CreateNewMapPoints over the covisible neighbours (stacked on a
     leading axis B): epipolar matching + triangulation + gates per
-    neighbour. Returns (idx (B,N), X (B,N,3), good (B,N))."""
+    neighbour, as `epipolar_match` and `triangulate_matches` compute them.
+    Returns (idx (B,N), X (B,N,3), good (B,N)). With `graphs` (the mapping
+    worker's `GraphCache`) each neighbour's match and design matrices, and
+    its gates, are replayed from two CUDA graphs on the card, the SVD
+    between them eager: eager, they are ~190 small kernels a neighbour."""
+    run = graphs if graphs is not None else (lambda fn, key, *args: fn(*args))
     out = []
     for desc2, xy2, level2, ur2, free2, R2, t2 in zip(desc2s, xy2s, level2s, ur2s, free2s, R2s, t2s):
-        R12 = R1 @ R2.T
-        idx, ok = epipolar_match(cam, desc1, xy1, level1, free1, desc2, xy2, level2, free2,
-                                 R12, t1 - R12 @ t2)
-        sel = idx.long()
-        X, good = triangulate_matches(cam, R1, t1, R2, t2, xy1, xy2[sel], level1, level2[sel],
-                                      ok, ur1, ur2[sel], scale)
-        out.append((idx, X, good))
+        idx, ok, A = run(lambda *a: _pair_rows(cam, *a), ("new_points.rows", cam),
+                         desc1, xy1, level1, free1, R1, t1, desc2, xy2, level2, free2, R2, t2)
+        Vh = torch.linalg.svd(A).Vh
+        X, good = run(lambda *a: _pair_points(cam, *a, scale), ("new_points.gates", cam, scale),
+                      Vh, R1, t1, R2, t2, xy1, xy2, level1, level2, ur1, ur2, idx, ok)
+        # a graph's outputs are overwritten by its next replay
+        out.append((idx, X, good) if graphs is None else (idx.clone(), X.clone(), good.clone()))
     return tuple(torch.stack(parts) for parts in zip(*out))
 
 

@@ -566,8 +566,16 @@ class SLAM:
         while it waited is skipped (the reference clears the queue on a
         reset). A keyframe's work is a `keyframe` span with the id of the
         frame that made it. An exception is counted in `worker_errors` and
-        printed, and the worker goes on."""
+        printed, and the worker goes on. Before the first keyframe the
+        mapper captures its local BA's graph (`LocalMapper.warm_up`)."""
         stream = self._map_stream
+        try:
+            with (torch.cuda.stream(stream) if stream is not None
+                  else contextlib.nullcontext()):
+                mapper.warm_up()
+        except Exception:
+            self._count_error()
+            traceback.print_exc()
         while True:
             item = q.get()
             try:

@@ -1,6 +1,6 @@
 """Where the port's stateful parts run: the card unless the caller asks for
 another device; the lock that keeps forward-mode AD to one thread at a
-time; and the capture of a CUDA graph."""
+time; and calls replayed from CUDA graphs (`GraphCache`)."""
 
 from __future__ import annotations
 
@@ -41,20 +41,81 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def _flatten(tree):
+    """(leaves, rebuild) of nested tuples and NamedTuples whose leaves are
+    tensors or None: `rebuild(leaves)` gives the structure back."""
+    if not isinstance(tree, tuple):
+        return [tree], lambda leaves: leaves[0]
+    parts = [_flatten(x) for x in tree]
+    leaves = [leaf for part, _ in parts for leaf in part]
+
+    def rebuild(flat):
+        out, i = [], 0
+        for part, inner in parts:
+            out.append(inner(flat[i:i + len(part)]))
+            i += len(part)
+        return type(tree)(*out) if hasattr(tree, "_fields") else tuple(out)
+
+    return leaves, rebuild
+
+
 def capture_graph(run):
     """(graph, out): `run()` captured into a CUDA graph on the card, and
     what the captured call returned (the graph's own tensors, which each
-    replay overwrites). Two warm-up calls on a side stream come first, so
-    that library handles and workspaces exist before the capture."""
+    replay overwrites). Two warm-up calls come first, so that library
+    handles and workspaces exist before the capture. All three run on a
+    side stream of their own, and nothing syncs the whole device: the
+    tracker and a mapping worker may each capture at the same time, each
+    beside the other's work (`thread_local`)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
     with torch.cuda.stream(side):
         for _ in range(2):
             run()
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            out = run()
+        finally:
+            graph.capture_end()
     torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    # thread_local: a mapping worker's allocations and syncs on its own
-    # stream, at the same time, do not break the capture
-    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-        out = run()
     return graph, out
+
+
+class GraphCache:
+    """Calls `fn(*args)` replayed from CUDA graphs on the card. One graph
+    per `key` (the hashable arguments that fix what fn runs: a camera, an
+    iteration count) and the shape and dtype of every tensor in `args`
+    (nested tuples and NamedTuples of tensors; a leaf may be None), captured
+    on the first call with a new key (`capture_graph`). Each call copies its
+    tensors into the graph's buffers and replays. It returns the graph's own
+    outputs, which the next replay of that key overwrites: a caller that
+    holds a result across calls clones it. On CPU tensors it is `fn(*args)`
+    itself. `captures`, `replays` and `eager` count the calls by how they
+    ran (a capturing call also replays)."""
+
+    def __init__(self):
+        self._graphs = {}
+        self.captures = self.replays = self.eager = 0
+
+    def __call__(self, fn, key, *args):
+        leaves, rebuild = _flatten(args)
+        if next(x for x in leaves if x is not None).device.type != "cuda":
+            self.eager += 1
+            return fn(*args)
+        key = (key,) + tuple(None if x is None else (x.shape, x.dtype) for x in leaves)
+        if key not in self._graphs:
+            self._graphs[key] = self._capture(fn, leaves, rebuild)
+        static, graph, out = self._graphs[key]
+        for buf, x in zip(static, leaves):
+            if buf is not None:
+                buf.copy_(x)
+        graph.replay()
+        self.replays += 1
+        return out
+
+    def _capture(self, fn, leaves, rebuild):
+        static = [None if x is None else x.clone() for x in leaves]
+        graph, out = capture_graph(lambda: fn(*rebuild(static)))
+        self.captures += 1
+        return static, graph, out
