@@ -1,45 +1,46 @@
 """The output check: each number compared beside its limit.
 
-`numbers(ctx, limits)` works out, for every limit of the cell, the number
-it bounds, from what the window produced and the plain references of
-`reference.py`:
+Each limit of a cell (`limits/<cell>.json`) names a check, the module
+`checks/<name>.py`, found by that name; a new check is a new file there.
+A check module states:
 
-- `wm_mismatch`: rows of the sampled window-match launches whose result
-  differs from the reference's, summed.
-- `pose_gap_mm`: the largest distance between the camera centre the frame
-  program's pose LM returned on a sampled frame and the reference
-  optimisation's over the same matches from the same start, in mm (map
-  units for a monocular map).
-- `vi_gap_mm`: the largest distance between the body position that the
-  tracker's VI refinement returned on a sampled frame and the reference
-  refinement's from the same start, matches and preintegration, in mm.
-- `viba_cost_gap`: the largest excess of the cost of a sampled inertial
-  local BA's result over the reference BA's (same problem, same
-  iterations), both costs taken by the reference's cost function, as a
-  share of the reference's cost.
-- `preint_gap`: the largest relative gap of a sampled IMU preintegration's
-  (dR, dV, dP) against the reference integration of the same samples.
+- `CALL`: the port's call it samples, either a module-level function under
+  the port's package (`"optim.vi_ba.vi_bundle_adjust"`) or an attribute of
+  the run's `SLAM` (`"slam.tracker._pose_inertial"`), wrapped only where it
+  exists;
+- `SAMPLE`: the key of the traffic's `samples` that sizes its draw;
+- `picks(rng, samples)`: which of the window's calls it keeps, counted from
+  0 at the window's first call: how many it draws, and from how many first
+  calls. All checks of a cell draw from one generator seeded by the run's
+  seed, in the order of their `SAMPLE` keys in the traffic's `samples`, so
+  the same seed samples the same calls;
+- `keep(args, kwargs, out)` (optional): what it keeps of a call, copied on
+  the device as the call returns (by default all three);
+- `number(kept, ctx)`: its number from the kept calls, a list of (call
+  index, copy), by the plain references (`reference.py`, or a file of the
+  check's own): the program's output where `ctx.control` is false, else the
+  control's, the reference computed in bfloat16 in the program's place.
+  None where nothing could be compared, which fails the run.
 
-With `ctx.control` the references computed in bfloat16 stand in the
-program's place, and the numbers are the control's readings.
-
-The trajectory is not compared here: on an H100 the generated motion in
-bfloat16 (the control of `rpe_mm`) read 1.5-2.9 mm RPE where the program
-read 3.7-11.6, so no limit separates the two (PERF.md). `rpe_mm` below
-works out the per-layer metric of that name.
+`rpe_mm` works out the per-layer metric of that name. The trajectory is not
+compared: on an H100 the generated motion in bfloat16 (the control of
+`rpe_mm`) read 1.5-2.9 mm RPE where the program read 3.7-11.6, so no limit
+separates the two (PERF.md).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import torch
 
+from . import probes
 from . import reference as ref
 
-BF16 = torch.bfloat16
-F64 = torch.float64
+HERE = Path(__file__).resolve().parent
 
 
 @dataclasses.dataclass
@@ -47,12 +48,53 @@ class Context:
     cam: dict
     control: bool
     seed: int
-    n_pose: int         # frame-program calls the pose check compares
+    samples: dict   # the traffic's `samples`
     mono: bool
-    samplers: dict
-    est: dict           # timestamp -> T_cw of every tracked frame
-    times: np.ndarray   # the window's frame times
-    gt: np.ndarray      # (n,4,4) the window's true T_cw
+
+
+def load_module(path: Path, prefix: str):
+    """The module of one file, loaded by its path."""
+    spec = importlib.util.spec_from_file_location(
+        f"{prefix}_{path.stem.replace('.', '_').replace('-', '_')}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def load(limits: dict, samples: dict, here: Path = HERE) -> dict:
+    """{name: check module} for each limit, in the order the checks draw;
+    stops the run on a limit with no check module, or one whose `SAMPLE`
+    the traffic's `samples` lack."""
+    missing = [n for n in limits if not (here / "checks" / f"{n}.py").is_file()]
+    if missing:
+        raise SystemExit(f"slambench: no check for the limit(s) {missing}: "
+                         f"{[f'slambench/checks/{n}.py' for n in missing]} not found")
+    checks = {n: load_module(here / "checks" / f"{n}.py", "slambench_check") for n in limits}
+    unsized = [n for n, mod in checks.items() if mod.SAMPLE not in samples]
+    if unsized:
+        raise SystemExit(f"slambench: the traffic's samples size no draw of the check(s) "
+                         f"{unsized} ({[checks[n].SAMPLE for n in unsized]})")
+    order = list(samples)
+    return dict(sorted(checks.items(), key=lambda kv: order.index(kv[1].SAMPLE)))
+
+
+def samplers(checks: dict, samples: dict, seed: int) -> dict:
+    """{name: probes.Sampler} of each check, its picks drawn from the seed."""
+    rng = np.random.default_rng(seed)
+    return {name: probes.Sampler(mod.picks(rng, samples), keep=getattr(mod, "keep", None))
+            for name, mod in checks.items()}
+
+
+def numbers(ctx: Context, checks: dict, samplers: dict, limits: dict) -> dict:
+    """{name: (number, limit)} for each limit whose number could be worked
+    out; a limit left out had nothing to compare, which fails the run."""
+    out = {}
+    with torch.no_grad():
+        for name, limit in limits.items():
+            value = checks[name].number(samplers[name].kept, ctx)
+            if value is not None:
+                out[name] = (float(value), float(limit))
+    return out
 
 
 def window_match_bound_s(args) -> float:
@@ -60,114 +102,14 @@ def window_match_bound_s(args) -> float:
     return ref.window_match_bound(args, ref.window_pairs(args))[0]
 
 
-def rpe_mm(ctx: Context) -> float:
-    """`rpe_mm` of the window's tracked frames (inf under 20 pairs)."""
-    keep = [k for k, ts in enumerate(ctx.times) if float(ts) in ctx.est]
+def rpe_mm(est: dict, times: np.ndarray, gt: np.ndarray, mono: bool) -> float:
+    """`rpe_mm` of the window's tracked frames (inf under 20 pairs): `est`
+    maps a timestamp to the T_cw the program gave it, `times` and `gt` are
+    the window's frame times and true T_cw."""
+    keep = [k for k, ts in enumerate(times) if float(ts) in est]
     if len(keep) < 3:
         return float("inf")
-    gt_wc = np.linalg.inv(ctx.gt[keep])
-    est_wc = np.linalg.inv(np.stack([ctx.est[float(ctx.times[k])] for k in keep])
-                           .astype(np.float64))
-    value, pairs = ref.rpe(est_wc, gt_wc, ctx.times[keep], 1.0, ctx.mono)
+    gt_wc = np.linalg.inv(gt[keep])
+    est_wc = np.linalg.inv(np.stack([est[float(times[k])] for k in keep]).astype(np.float64))
+    value, pairs = ref.rpe(est_wc, gt_wc, times[keep], 1.0, mono)
     return value * 1e3 if pairs >= 20 else float("inf")
-
-
-def _wm(ctx: Context):
-    total, seen = 0, 0
-    for _, (args, _, out) in ctx.samplers["window_match"].kept:
-        want = ref.window_match(args, F64)
-        if not bool((want[1] < ref.BIG).any()):
-            continue  # no query had a candidate: nothing to compare
-        got = ref.window_match(args, BF16)[:3] if ctx.control else out
-        total += ref.window_match_mismatches(got, want)
-        seen += 1
-    return total if seen else None
-
-
-def pose_sample(args, kwargs, out):
-    """What the pose check keeps of a `track_against_points` call: the
-    local points' positions, the frame's keypoints, the start pose, and
-    the result's pose and matches."""
-    _, feats, pts, R0, t0 = args[:5]
-    return (pts.pos, feats.xy, feats.u_right, feats.level, R0, t0, out.R, out.t,
-            out.match_feat)
-
-
-def _pose(ctx: Context):
-    """Over `ctx.n_pose` calls drawn from the seed among those of the
-    window's first calls that matched at least 20 points."""
-    able = [k for _, k in ctx.samplers["pose"].kept if int((k[-1] >= 0).sum()) >= 20]
-    if not able:
-        return None
-    picks = np.random.default_rng(ctx.seed).choice(len(able), min(ctx.n_pose, len(able)), False)
-    gaps = []
-    for i in sorted(picks):
-        pos, xy, u_right, level, R0, t0, R_got, t_got, match = able[i]
-        valid = match >= 0
-        sel = match.clamp_min(0).long()
-        obs = (pos, xy[sel], u_right[sel], level[sel], valid)
-        R, t = ref.pose_lm(ctx.cam, R0, t0, *obs, dtype=F64)
-        if ctx.control:
-            gR, gt = ref.pose_lm(ctx.cam, R0, t0, *obs, dtype=BF16)
-        else:
-            gR, gt = R_got.to(F64), t_got.to(F64)
-        c_ref, c_got = -(R.T @ t), -(gR.T @ gt)
-        gaps.append(float(torch.linalg.norm(c_ref - c_got)) * 1e3)
-    return max(gaps)
-
-
-def _viba(ctx: Context):
-    gaps = []
-    for _, (args, kwargs, out) in ctx.samplers["viba"].kept:
-        prob = args[1]._asdict()
-        if prob["obs_rig"] is not None:
-            raise ValueError("the inertial BA reference has no camera rig")
-        prob["pre"] = prob["pre"]._asdict()
-        iters = kwargs.get("iters", args[2] if len(args) > 2 else 10)
-        want = ref.viba_lm(ctx.cam, prob, iters=iters, dtype=F64)
-        got = ref.viba_lm(ctx.cam, prob, iters=iters, dtype=BF16) if ctx.control else out[:5]
-        c_ref = ref.viba_cost(ctx.cam, prob, want)
-        c_got = ref.viba_cost(ctx.cam, prob, got)
-        gaps.append((c_got - c_ref) / max(c_ref, 1e-12))
-    return max(gaps) if gaps else None
-
-
-def _vi_refine(ctx: Context):
-    gaps = []
-    for _, (args, _, out) in ctx.samplers["vi_refine"].kept:
-        _, state0, prev, pre, obs, Tcb = args
-        plain = (state0._asdict(), prev._asdict(), pre._asdict(), obs._asdict(), Tcb)
-        want = ref.vi_refine_lm(ctx.cam, *plain, dtype=F64)
-        got = (ref.vi_refine_lm(ctx.cam, *plain, dtype=BF16) if ctx.control
-               else [t.to(F64) for t in out[0]])
-        gaps.append(float(torch.linalg.norm(got[1] - want[1])) * 1e3)
-    return max(gaps) if gaps else None
-
-
-def _preint(ctx: Context):
-    gaps = []
-    for _, (args, _, out) in ctx.samplers["preint"].kept:
-        acc, gyr, dts, bias = args[:4]
-        if float(dts.clamp_min(0).sum()) <= 0:
-            continue
-        want = ref.preintegrate(acc, gyr, dts, bias, F64)
-        got = ref.preintegrate(acc, gyr, dts, bias, BF16) if ctx.control else (out.dR, out.dV,
-                                                                               out.dP)
-        gaps.append(ref.preint_gap(want, got))
-    return max(gaps) if gaps else None
-
-
-READERS = {"wm_mismatch": _wm, "pose_gap_mm": _pose, "vi_gap_mm": _vi_refine,
-           "viba_cost_gap": _viba, "preint_gap": _preint}
-
-
-def numbers(ctx: Context, limits: dict) -> dict:
-    """{name: (number, limit)} for each limit whose number could be worked
-    out; a limit left out had nothing to compare, which fails the run."""
-    out = {}
-    with torch.no_grad():
-        for name, limit in limits.items():
-            value = READERS[name](ctx)
-            if value is not None:
-                out[name] = (float(value), float(limit))
-    return out

@@ -1,6 +1,6 @@
 """Host launch calls (kernels, copies, memsets, graph launches) inside each
 `keyframe` span of the profiled slice, median over its keyframes
-(`spans.charge`'s `keyframe_launches`)."""
+(`trace.reduce`'s `keyframe_launches`)."""
 
 import statistics
 

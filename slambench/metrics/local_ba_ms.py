@@ -1,8 +1,7 @@
 """The `local_ba` span's ms (the local BA of `LocalMapper.process_keyframe`,
 inertial once the IMU is initialized), mean over the window's keyframes
-that ran one. Reads the port's spans (`ctx["spans"]`, dicts of
-`utils/profiling.Span`'s fields), which a run holds with the port's tracer
-on (`slambench/spans.py`)."""
+that ran one. Reads the port's spans of the window (`ctx["spans"]`, dicts
+of `utils/profiling.Span`'s fields), which the `--trace 1` run records."""
 
 
 def read(ctx):

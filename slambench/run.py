@@ -5,8 +5,10 @@
 Everything a cell needs is found by name: the cell in `BENCHMARK.json`,
 its configuration in `slambench/configs/<config>.json`, its traffic in
 `slambench/traffic/<traffic>.json`, the limits of its output check in
-`slambench/limits/<workload>.json`, and each per-layer metric's reader in
-`slambench/metrics/<metric>.py`.
+`slambench/limits/<workload>.json`, the check of each limit in
+`slambench/checks/<limit>.py` (see `check.py`), and each per-layer
+metric's reader in `slambench/metrics/<metric>.py`. A limit with no check
+stops the run before anything is built.
 
 A run (1) builds the scene and the IMU samples from the seed, renders the
 frames on the card, builds the `SLAM` of the configuration and feeds it the
@@ -14,9 +16,12 @@ traffic's warm-up frames: that is `setup_s`, from the process's start to
 the window's first frame; (2) replays the frames in a closed loop for
 `--seconds`, the next frame going in when the previous call returns, with
 the frames as host uint8 arrays; (3) checks the output against the plain
-references of `reference.py` and prints one JSON line. With `--trace 1`
-the same run times the layers through the harness's wrappers, profiles a
-slice of the window, and prints the per-layer metrics instead.
+references and prints one JSON line. With `--trace 1` the same run
+records the port's spans (`utils/profiling.GLOBAL_TIMER`, on from the
+`SLAM`'s construction to the window's close, the warm-up's kept apart from
+the window's), times the layers through the harness's wrappers, profiles a
+slice of the window, and prints the per-layer metrics instead, with a table
+of the spans by name. With `--trace 0` the tracer stays off.
 
 `--control 1` is not used by the benchmark's own runs: it puts the
 references, computed one precision lower (bfloat16), in the program's
@@ -65,8 +70,10 @@ def forbidden_modules() -> list[str]:
 
 
 def load_cell(workload: str) -> dict:
-    """The cell, its configuration, traffic, limits and per-layer metrics,
-    by the names in BENCHMARK.json."""
+    """The cell, its configuration, traffic, limits, checks and per-layer
+    metrics, by the names in BENCHMARK.json."""
+    from . import check, generate
+
     bench = json.loads((ROOT / "BENCHMARK.json").read_text())
     cell = next((w for w in bench["workloads"] if w["name"] == workload), None)
     if cell is None:
@@ -74,11 +81,15 @@ def load_cell(workload: str) -> dict:
     conf = next(c for c in bench["configs"] if c["name"] == cell["config"])
     per_layer = [m for m in bench["per_layer"] if workload in m.get("workloads", [workload])]
     end_to_end = [m for m in bench["end_to_end"] if workload in m.get("workloads", [workload])]
+    limits = json.loads((HERE / "limits" / f"{workload}.json").read_text())
+    spec = generate.load_traffic(cell["traffic"])
     return {
         "cell": cell,
         "config": json.loads((ROOT / conf["file"]).read_text()),
         "traffic": cell["traffic"],
-        "limits": json.loads((HERE / "limits" / f"{workload}.json").read_text()),
+        "spec": spec,
+        "limits": limits,
+        "checks": check.load(limits, spec["samples"], HERE),
         "per_layer": per_layer,
         "end_to_end": end_to_end,
     }
@@ -86,12 +97,23 @@ def load_cell(workload: str) -> dict:
 
 def metric_reader(name: str):
     """`read(ctx)` of `metrics/<name>.py`."""
-    path = HERE / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(f"slambench_metric_{name.replace('.', '_')}",
-                                                  path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    from . import check
+
+    return check.load_module(HERE / "metrics" / f"{name}.py", "slambench_metric").read
+
+
+def port_attribute(call: str, slam):
+    """(owner, name) of a check's `CALL`: a function of a module under the
+    port's package (`optim.imu.preintegrate`), or an attribute of `slam`
+    (`slam.tracker._pose_inertial`); None where it does not exist."""
+    *path, name = call.split(".")
+    if path[:1] == ["slam"]:
+        owner = slam
+        for part in path[1:]:
+            owner = getattr(owner, part, None)
+    else:
+        owner = importlib.import_module(".".join([PORT, *path]))
+    return (owner, name) if hasattr(owner, name) else None
 
 
 def camera_dict(cfg: dict) -> dict:
@@ -164,19 +186,17 @@ def run(args, device, hooks=None) -> tuple[dict, list[str]]:
     """One run on `device`; returns (the result line's dict, the check
     lines). `hooks(slam)`, where given, runs once the warm-up has ended,
     before the window (the tests plant faults there)."""
-    import numpy as np
     import torch
 
     from orb_slam3_comments_ghr_torch.optim import imu as imu_mod
-    from orb_slam3_comments_ghr_torch.optim import vi_ba
     from orb_slam3_comments_ghr_torch.pipeline import programs
+    from orb_slam3_comments_ghr_torch.utils.profiling import GLOBAL_TIMER, StageTimer
 
     from . import check, generate, probes
     from . import trace as trace_mod
 
     cell = load_cell(args.workload)
-    cfg, limits = cell["config"], cell["limits"]
-    spec = generate.load_traffic(cell["traffic"])
+    cfg, limits, checks, spec = cell["config"], cell["limits"], cell["checks"], cell["spec"]
     cam = camera_dict(cfg)
     stereo = "stereo" in cfg["sensor"]
     cuda = device.type == "cuda"
@@ -188,6 +208,10 @@ def run(args, device, hooks=None) -> tuple[dict, list[str]]:
     if cuda:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(device)
+    traced = bool(args.trace)
+    if traced:
+        GLOBAL_TIMER.reset()
+        GLOBAL_TIMER.enabled = True
     slam = build_slam(cfg, device)
     entry = slam.track_stereo if stereo else slam.track_monocular
 
@@ -206,28 +230,18 @@ def run(args, device, hooks=None) -> tuple[dict, list[str]]:
         pose = feed(warm)
         warm += 1
     sync()
+    warmup_spans = trace_mod.take_spans(GLOBAL_TIMER) if traced else []
     if hooks is not None:
         hooks(slam)
 
     # the output check's samples, drawn from the seed
-    rng = np.random.default_rng(args.seed)
-    smp = spec["samples"]
-    samplers = {
-        "window_match": probes.Sampler(rng.choice(smp["draw_from"], smp["window_match"], False)),
-        "pose": probes.Sampler(range(smp["draw_from"]), keep=check.pose_sample),
-        "viba": probes.Sampler(rng.choice(smp["viba_from"], smp["viba"], False)),
-        "preint": probes.Sampler(rng.choice(smp["draw_from"], smp["preint"], False)),
-        "vi_refine": probes.Sampler(rng.choice(smp["draw_from"], smp["vi_refine"], False)),
-    }
+    samplers = check.samplers(checks, spec["samples"], args.seed)
     patches = probes.Patches()
-    patches.wrap(programs, "window_match", samplers["window_match"])
-    patches.wrap(programs, "track_against_points", samplers["pose"])
-    patches.wrap(vi_ba, "vi_bundle_adjust", samplers["viba"])
-    patches.wrap(imu_mod, "preintegrate", samplers["preint"])
-    if slam.imu is not None:
-        patches.wrap(slam.tracker, "_pose_inertial", samplers["vi_refine"])
+    for name, mod in checks.items():
+        where = port_attribute(mod.CALL, slam)
+        if where is not None:
+            patches.wrap(*where, samplers[name])
 
-    traced = bool(args.trace)
     timer = probes.Timer(sync)
     keyframe_at = set()
     cur = [0]
@@ -296,6 +310,10 @@ def run(args, device, hooks=None) -> tuple[dict, list[str]]:
         sync()
         prof.__exit__(None, None, None)
         profiling[0] = False
+    spans = []
+    if traced:
+        GLOBAL_TIMER.enabled = False
+        spans = trace_mod.take_spans(GLOBAL_TIMER)
     patches.restore()
     bad = forbidden_modules()
     if bad:
@@ -319,16 +337,16 @@ def run(args, device, hooks=None) -> tuple[dict, list[str]]:
         torch.cuda.empty_cache()
 
     win = slice(warm, warm + n)
+    mono = cfg["sensor"] == "mono"
     ctx = check.Context(cam=cam, control=bool(args.control), seed=args.seed,
-                        n_pose=int(smp["pose"]), mono=cfg["sensor"] == "mono",
-                        samplers=samplers, est=est, times=frames.times[win],
-                        gt=frames.T_cw[win])
+                        samples=spec["samples"], mono=mono)
     t_check = time.perf_counter()
-    numbers = check.numbers(ctx, limits)
+    numbers = check.numbers(ctx, checks, samplers, limits)
     program_numbers = None
     if args.control:  # the program's own readings on the same samples, beside the control's
-        program_numbers = check.numbers(dataclasses.replace(ctx, control=False), limits)
-    e2e["rpe_mm"] = check.rpe_mm(ctx)
+        program_numbers = check.numbers(dataclasses.replace(ctx, control=False), checks,
+                                        samplers, limits)
+    e2e["rpe_mm"] = check.rpe_mm(est, frames.times[win], frames.T_cw[win], mono)
     check_s = time.perf_counter() - t_check
     verdict = all(v <= lim for v, lim in numbers.values()) and set(numbers) == set(limits)
     result["correct"] = bool(verdict)
@@ -338,18 +356,21 @@ def run(args, device, hooks=None) -> tuple[dict, list[str]]:
             lines.append(f"{name} missing limit {limits[name]!r}")
 
     if traced:
-        summary = trace_mod.reduce(prof, ranges) if prof is not None else {}
+        port_spans = set(StageTimer.STAGES) | {s["name"] for s in spans + warmup_spans}
+        summary = trace_mod.reduce(prof, ranges, port_spans) if prof is not None else {}
         wm_bounds = [check.window_match_bound_s(a) for a in wm_args]
         mctx = {"latency_ms": latency, "tracked": tracked, "keyframe_at": keyframe_at,
                 "timer_ms": dict(timer.ms), "vi_ms_at": vi_ms_at, "trace": summary,
                 "trace_from": trace_from, "wm_bounds_s": wm_bounds, "rpe_mm": e2e["rpe_mm"],
-                "inertial": frames.imu is not None}
+                "inertial": frames.imu is not None, "spans": spans,
+                "warmup_spans": warmup_spans, "events": events, "warmup_frames": warm}
         for m in cell["per_layer"]:
             value = metric_reader(m["name"])(mctx)
             if value is not None:
                 result["metrics"][m["name"]] = {"value": value, "unit": m["unit"]}
         result["breakdown"] = {"device_ops": summary.get("device_ops", []),
                                "idle_gaps": summary.get("idle_gaps", [])}
+        result["spans"] = trace_mod.table(spans, summary)
         busy, wall = summary.get("busy_s", 0.0), summary.get("window_s", 0.0)
     else:
         for m in cell["end_to_end"]:
@@ -366,6 +387,9 @@ def run(args, device, hooks=None) -> tuple[dict, list[str]]:
                         "first_frame": int(spec["start_frame"]) + warm,
                         "check_s": check_s,
                         "no_pose_at": [i for i, ok in enumerate(tracked) if not ok]}
+    if traced:
+        result["window"]["keyframe_at"] = sorted(keyframe_at)
+    result["sampled"] = {name: [i for i, _ in s.kept] for name, s in samplers.items()}
     if program_numbers is not None:
         result["program_checks"] = {name: {"value": v, "limit": lim}
                                     for name, (v, lim) in program_numbers.items()}

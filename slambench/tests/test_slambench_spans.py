@@ -1,10 +1,11 @@
-"""`spans.charge` on a synthetic list of profiler events: launches and host
+"""`trace.reduce` on a synthetic list of profiler events: launches and host
 syncs go to the innermost range open on their thread, a harness `Timer`'s
 synchronize stays in its harness range, and launches are counted inside
-each `keyframe` span. `trace.reduce` given the port's span names keeps
-their GPU annotations out of the device's busy time and names an idle gap
-by the innermost port span open when it began. Each reader of the spans
-returns None on an empty context and reads what the run gives it."""
+each `keyframe` span. Given the port's span names, it keeps their GPU
+annotations out of the device's busy time and names an idle gap by the
+innermost port span open when it began. `trace.take_spans` keeps the
+warm-up's spans apart from the window's. Each reader of the spans returns
+None on an empty context and reads what the run gives it."""
 
 import sys
 from pathlib import Path
@@ -15,11 +16,13 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
 
-from slambench import run, spans, trace  # noqa: E402
+from slambench import run, trace  # noqa: E402
+from orb_slam3_comments_ghr_torch.utils.profiling import StageTimer  # noqa: E402
 
 CPU, CUDA = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
 HARNESS = ("frame_program", "keyframe.mapper")
 PORT = ("frame", "extract", "track_map", "pose_lm", "keyframe", "local_ba")
+SPAN_METRICS = ("local_ba_ms", "keyframe_rest_ms", "keyframe_launches", "frame_syncs")
 
 
 def ev(name, a, b=None, device=CPU, thread=1):
@@ -58,7 +61,7 @@ def two_frames():
 
 
 def test_launches_and_syncs_go_to_the_innermost_range():
-    out = spans.charge(two_frames(), HARNESS, PORT)
+    out = trace.reduce(two_frames(), HARNESS, PORT)
     # frame 0: frame 2 (t=2 from the other thread, t=5), extract 2,
     # track_map 1, pose_lm 2; the launch at 39 lies in frame_program after
     # the port's spans closed. Frame 1: frame 1, local_ba 2; the one at 185
@@ -79,21 +82,21 @@ def test_launches_and_syncs_go_to_the_innermost_range():
 
 
 def test_idle_gaps_are_named_by_the_innermost_port_span():
-    out = trace.reduce(two_frames(), HARNESS + PORT)
+    out = trace.reduce(two_frames(), HARNESS, PORT)
     named = {round(s * 1e6): n for n, s in out["idle_gaps"]}
     # busy: [2,3], [14,16], [130,140]; the gap at 0 opens before any port span
     assert named == {2: trace.FRAME, 11: "frame", 114: "extract", 60: "frame"}
 
 
 def test_trace_reduce_keeps_port_annotations_out_of_the_busy_time():
-    with_port = trace.reduce(two_frames(), HARNESS + PORT)
+    with_port = trace.reduce(two_frames(), HARNESS, PORT)
     without = trace.reduce(two_frames(), HARNESS)
     assert with_port["busy_s"] == pytest.approx(13e-6)  # kernels a, b, c
     assert without["busy_s"] == pytest.approx(19e-6)    # the annotation [12, 20] counted too
 
 
 def test_readers_return_none_on_an_empty_context():
-    for name in spans.NEW_METRICS:
+    for name in SPAN_METRICS:
         assert run.metric_reader(name)({}) is None, name
 
 
@@ -102,7 +105,35 @@ def test_readers_read_the_spans_and_the_trace():
          {"id": 1, "name": "local_ba", "parent": 0, "ms": 60.0},
          {"id": 2, "name": "keyframe", "parent": None, "ms": 50.0},
          {"id": 3, "name": "local_ba", "parent": 9, "ms": 20.0}]
-    ctx = {"spans": s, "trace": spans.charge(two_frames(), HARNESS, PORT)}
-    read = {n: run.metric_reader(n)(ctx) for n in spans.NEW_METRICS}
+    ctx = {"spans": s, "trace": trace.reduce(two_frames(), HARNESS, PORT)}
+    read = {n: run.metric_reader(n)(ctx) for n in SPAN_METRICS}
     assert read == {"local_ba_ms": 40.0, "keyframe_rest_ms": 45.0, "keyframe_launches": 3.0,
                     "frame_syncs": 1.0}
+
+
+def test_warm_up_spans_are_kept_apart_from_the_window_s():
+    """The run takes the spans once when the warm-up ends and once when the
+    window closes; a span still open at the first take (a whole-map BA on its
+    own thread) joins the second."""
+    timer = StageTimer()
+    with timer.stage("frame", frame=0):
+        with timer.stage("extract"):
+            pass
+    straddling = timer.stage("global_ba", frame=0)
+    straddling.__enter__()
+    warmup = trace.take_spans(timer)
+    with timer.stage("frame", frame=1):
+        with timer.stage("keyframe"):
+            with timer.stage("local_ba"):
+                pass
+    straddling.__exit__(None, None, None)
+    window = trace.take_spans(timer)
+    assert [(s["name"], s["frame"]) for s in warmup] == [("frame", 0), ("extract", 0)]
+    assert [(s["name"], s["frame"]) for s in window] == [("global_ba", 0), ("frame", 1),
+                                                          ("keyframe", 1), ("local_ba", 1)]
+    assert warmup[1]["parent"] == warmup[0]["id"] and window[3]["parent"] == window[2]["id"]
+    assert not {s["id"] for s in warmup} & {s["id"] for s in window}
+    assert trace.take_spans(timer) == []
+    kf = {"spans": window, "warmup_spans": warmup}
+    assert run.metric_reader("local_ba_ms")(kf) == window[3]["ms"]
+    assert run.metric_reader("local_ba_ms")({"spans": [], "warmup_spans": window}) is None
